@@ -1,0 +1,380 @@
+"""KBest — the user-facing API (paper §4, Table 2), graph family.
+
+    index = KBest(config)              # on the card; device="cpu" for tests
+    index.add(x)                       # index construction (build pipeline)
+    d, i = index.search(q, k)          # query processing
+    index.save(path) / KBest.load(path)
+
+The counterpart of the JAX package's `repro/core/index.py` for
+`index_type="graph"` with `QuantConfig.kind="none"` (DESIGN.md §3): kNN
+graph (brute / NN-descent) -> edge selection -> search-based and 2-hop
+refinement (A1) -> reverse-edge fill -> connectivity repair -> MST
+reordering (A2) -> medoid entry point; search runs the batched traversal
+of core.search with early termination (A3). Saves are the reference's
+format 2, readable by either package.
+
+The IVF family and the quantized kinds are not ported yet (ROADMAP.md,
+"Modules to port", items 7 and 8) and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+import warnings
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import build as build_mod
+from repro_torch.core import persist
+from repro_torch.core import reorder as reorder_mod
+from repro_torch.core import search as search_mod
+from repro_torch.core.distance import normalize
+from repro_torch.core.refine import _chunk_dists, _sync, refine_graph
+from repro_torch.core.types import IndexConfig, SearchConfig
+
+_NOT_PORTED = {
+    "ivf": "the IVF family is not ported yet (ROADMAP.md, Modules to "
+           "port, item 8)",
+    "quant": "quantized graph kinds are not ported yet (ROADMAP.md, "
+             "Modules to port, item 7)",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the card; without CUDA that raises — pass device="cpu"
+    to run on the host."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("KBest runs on a CUDA device by default and "
+                               "none is available; pass device='cpu' to "
+                               "run on the host")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def check_supported(config: IndexConfig) -> None:
+    if config.index_type == "ivf":
+        raise NotImplementedError(_NOT_PORTED["ivf"])
+    if config.quant.kind != "none":
+        raise NotImplementedError(
+            f"kind={config.quant.kind!r}: {_NOT_PORTED['quant']}")
+
+
+class KBest:
+    def __init__(self, config: IndexConfig, device=None,
+                 node_chunk: Optional[int] = None):
+        check_supported(config)
+        self.config = config
+        self.device = resolve_device(device)
+        # rows per build-time chunk; results do not depend on it
+        self.node_chunk = node_chunk or (
+            16384 if self.device.type == "cuda" else 512)
+        self.db: Optional[torch.Tensor] = None       # (n, d) f32
+        self.graph: Optional[torch.Tensor] = None    # (n, M) int32
+        self.entry: int = 0
+        self.order: Optional[np.ndarray] = None      # new->old id map
+        self._order_t: Optional[torch.Tensor] = None
+        self.build_times: Dict[str, float] = {}      # seconds per stage
+        self._fns = {}
+
+    @property
+    def _metric(self) -> str:
+        return "ip" if self.config.metric == "cosine" else self.config.metric
+
+    # ------------------------------------------------------------------ add
+    def add(self, x, init_ids: Optional[torch.Tensor] = None,
+            timings: Optional[dict] = None) -> "KBest":
+        """Build the index over x (n, d). `init_ids` (n, knn_k) optionally
+        replaces the NN-descent random start (build.random_init_ids);
+        `timings`, when given, receives each stage's seconds as it ends
+        (it becomes `build_times`)."""
+        cfg = self.config
+        assert cfg.n_shards == 1, \
+            "config.n_shards > 1 is the sharded composition, not ported yet"
+        b = cfg.build
+        dev = self.device
+        times = self.build_times = {} if timings is None else timings
+        t0 = time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            _sync(dev)
+            t = time.perf_counter()
+            times[name] = times.get(name, 0.0) + (t - t0)
+            t0 = t
+
+        x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+        assert x.ndim == 2 and x.shape[1] == cfg.dim, tuple(x.shape)
+        if cfg.metric == "cosine":
+            x = normalize(x)
+        metric = self._metric
+        lap("upload")
+
+        knn_ids, knn_dists = build_mod.build_knn(
+            x, b.knn_k, metric, builder=b.builder,
+            rounds=b.nn_descent_rounds, sample=b.nn_descent_sample,
+            seed=b.seed, init_ids=init_ids, row_chunk=self.node_chunk)
+        lap("knn")
+        entry = build_mod.medoid(x, metric)
+        lap("medoid")
+        graph = refine_graph(
+            x, knn_ids, knn_dists, M=b.M, rule=b.select_rule, metric=metric,
+            alpha=b.alpha, ssg_angle_deg=b.ssg_angle_deg,
+            iters=b.refine_iters, cand_cap=b.refine_cands,
+            entry=entry, search_L=b.search_L, search_passes=b.search_passes,
+            node_chunk=self.node_chunk, timings=times)
+        del knn_ids, knn_dists
+        t0 = time.perf_counter()
+
+        order = None
+        if b.reorder != "none":
+            g_t = torch.as_tensor(graph, device=dev)
+            weights = _edge_weights(x, g_t, metric, self.node_chunk)
+            del g_t
+            lap("edge_weights")
+            if b.reorder == "mst":
+                order = reorder_mod.mst_reorder(graph, weights, entry)
+            elif b.reorder == "cm":
+                order = reorder_mod.cuthill_mckee(graph, entry)
+            else:
+                raise ValueError(b.reorder)
+            lap("reorder")
+            new_of_old = np.empty(len(order), dtype=np.int64)
+            new_of_old[order] = np.arange(len(order))
+            order_t = torch.as_tensor(order, device=dev)
+            x = x[order_t]
+            g = graph[order]
+            graph = np.where(g >= 0, new_of_old[np.maximum(g, 0)],
+                             -1).astype(np.int32)
+            entry = int(new_of_old[entry])
+            lap("apply_order")
+
+        self._set_state(x, torch.as_tensor(graph, device=dev), entry, order)
+        lap("upload_graph")
+        return self
+
+    def _set_state(self, db, graph, entry, order) -> None:
+        self.db = db.contiguous()
+        self.graph = graph.to(torch.int32).contiguous()
+        self.entry = int(entry)
+        self.order = None if order is None else np.asarray(order)
+        self._order_t = (None if order is None else
+                         torch.as_tensor(self.order, dtype=torch.int32,
+                                         device=self.device))
+        self._fns = {}
+
+    # --------------------------------------------------------------- search
+    def search(self, queries, k: Optional[int] = None,
+               search_cfg: Optional[SearchConfig] = None,
+               with_stats: bool = False):
+        """Top-k search. queries: (Q, d). Returns (dists, ids[, stats]) as
+        tensors on the index's device."""
+        assert self.db is not None, "call add() first"
+        scfg = resolve_search_cfg(self.config, k, search_cfg)
+        dists, ids, stats = self._search_impl(
+            prep_queries(self.config, queries, self.device), scfg,
+            valid_mask=None)
+        return (dists, ids, stats) if with_stats else (dists, ids)
+
+    def search_padded(self, queries, valid_mask, k: Optional[int] = None,
+                      search_cfg: Optional[SearchConfig] = None,
+                      with_stats: bool = False):
+        """Shape-stable search over a padded batch: rows with
+        valid_mask[i] False come back as (+inf, -1) with zeroed stats and
+        start inactive in the traversal; valid rows equal an unpadded
+        `search` of the same queries."""
+        assert self.db is not None, "call add() first"
+        scfg = resolve_search_cfg(self.config, k, search_cfg)
+        vm = torch.as_tensor(np.asarray(valid_mask, dtype=bool),
+                             device=self.device)
+        dists, ids, stats = self._search_impl(
+            prep_queries(self.config, queries, self.device), scfg,
+            valid_mask=vm)
+        dists, ids, stats = mask_padded_lanes(vm, dists, ids, stats)
+        return (dists, ids, stats) if with_stats else (dists, ids)
+
+    def _search_impl(self, q: torch.Tensor, scfg: SearchConfig,
+                     valid_mask: Optional[torch.Tensor]):
+        """Shared body of search/search_padded (the reference's `else`
+        branch: full-precision graph search). Returns (dists, ids, stats)."""
+        n = self.db.shape[0]
+        entry_ids = self._entry_ids(scfg.n_entries, n)
+        dist_fn = self._get_dist_fn(scfg.dist_impl)
+        dists, ids, stats = search_mod.search(
+            self.graph, q, entry_ids, dist_fn=dist_fn, cfg=scfg,
+            n_total=n, valid_mask=valid_mask,
+            expand_fn=self._get_expand_fn(scfg))
+        # translate internal (post-reorder) ids back to the user's add() ids
+        if self._order_t is not None:
+            ids = torch.where(ids >= 0,
+                              self._order_t[torch.clamp(ids, min=0).long()],
+                              torch.full_like(ids, -1))
+        return dists, ids, stats
+
+    def _entry_ids(self, n_entries: int, n: int) -> torch.Tensor:
+        """Medoid + evenly-spaced deterministic seeds; all distinct."""
+        e = max(1, min(n_entries, n))
+        if e == 1:
+            return torch.tensor([self.entry % n], dtype=torch.int32)
+        off = np.round(np.linspace(1, n - 1, e - 1)).astype(np.int64)
+        ids = (self.entry + np.concatenate([[0], off])) % n
+        return torch.as_tensor(ids, dtype=torch.int32)
+
+    def _get_dist_fn(self, impl: str):
+        key = ("dist", impl)
+        if key not in self._fns:
+            self._fns[key] = search_mod.make_dist_fn(self.db, self._metric,
+                                                     impl)
+        return self._fns[key]
+
+    def _get_expand_fn(self, scfg: SearchConfig):
+        """The fused gather+distance+sort step, engaged only for
+        kernel-impl beam searches without batch_B chunking (W=1 keeps the
+        gather-then-merge path, as in the reference)."""
+        if scfg.dist_impl != "kernel" or scfg.beam_width <= 1 \
+                or scfg.batch_B != 0:
+            return None
+        key = ("expand", scfg.L, scfg.beam_width)
+        if key not in self._fns:
+            self._fns[key] = search_mod.make_expand_fn(
+                self.db, self._metric, L=scfg.L, n_beam=scfg.beam_width)
+        return self._fns[key]
+
+    # ------------------------------------------------------------ save/load
+    def save(self, path: str, _label: str = "index") -> None:
+        """Crash-safe format-2 save (DESIGN.md §17), the reference's files:
+        the .npz is written atomically, then the JSON sidecar carrying a
+        crc32 per array commits it."""
+        p = Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        arrs = {"db": self.db.cpu().numpy(),
+                "graph": self.graph.cpu().numpy()}
+        if self.order is not None:
+            arrs["order"] = np.asarray(self.order)
+        sums = persist.save_arrays(_npz_path(p), arrs, f"{_label}.arrays")
+        meta = {"entry": self.entry,
+                "config": dataclasses.asdict(self.config),
+                "format": 2,
+                "checksums": sums}
+        persist.atomic_write(_meta_path(p), json.dumps(meta).encode(),
+                             f"{_label}.meta")
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "KBest":
+        """Load with validation: a torn or mismatched save raises
+        persist.IndexCorruptError, never a silently wrong index."""
+        p = Path(path)
+        mp = _meta_path(p)
+        if not mp.exists() and p.with_suffix(".json").exists():
+            mp = p.with_suffix(".json")     # pre-fix saves (load-compat)
+        try:
+            meta = json.loads(mp.read_text())
+        except FileNotFoundError:
+            raise
+        except Exception as e:              # torn/garbage sidecar bytes
+            raise persist.IndexCorruptError(
+                f"unreadable index sidecar at {mp}: {e!r}") from e
+        z = persist.load_arrays(_npz_path(p), meta.get("checksums"))
+        return _from_arrays(z, int(meta["entry"]),
+                            _config_from_dict(meta["config"]), device)
+
+
+def _from_arrays(arrays: dict, entry: int, config: IndexConfig,
+                 device) -> KBest:
+    idx = KBest(config, device=device)
+    extra = sorted(set(arrays) - {"db", "graph", "order"})
+    if extra:
+        raise NotImplementedError(
+            f"index arrays {extra} belong to a family or kind not ported "
+            f"yet (ROADMAP.md, Modules to port)")
+    db = torch.as_tensor(np.array(arrays["db"], dtype=np.float32),
+                         device=idx.device)
+    graph = torch.as_tensor(np.array(arrays["graph"], dtype=np.int32),
+                            device=idx.device)
+    idx._set_state(db, graph, entry, arrays.get("order"))
+    return idx
+
+
+def resolve_search_cfg(config: IndexConfig, k: Optional[int],
+                       search_cfg: Optional[SearchConfig]) -> SearchConfig:
+    """Fold a per-call k override into a concrete SearchConfig (k > L
+    widens the queue to fit)."""
+    scfg = search_cfg or config.search
+    if k is not None and k != scfg.k:
+        scfg = dataclasses.replace(scfg, k=k, L=max(scfg.L, k))
+    return scfg
+
+
+def prep_queries(config: IndexConfig, queries, device) -> torch.Tensor:
+    """Query-side add()-time preprocessing: f32 cast + cosine normalize."""
+    q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    if config.metric == "cosine":
+        q = normalize(q)
+    return q.contiguous()
+
+
+def mask_padded_lanes(vm: torch.Tensor, dists: torch.Tensor,
+                      ids: torch.Tensor, stats):
+    """The search_padded output contract: invalid lanes come back as
+    (+inf, -1) with zeroed stats. `stats` may be None."""
+    dists = torch.where(vm[:, None], dists, torch.full_like(dists, float("inf")))
+    ids = torch.where(vm[:, None], ids, torch.full_like(ids, -1))
+    if stats is not None:
+        zero = torch.zeros_like(stats.n_hops)
+        stats = search_mod.SearchStats(
+            n_hops=torch.where(vm, stats.n_hops, zero),
+            n_dist=torch.where(vm, stats.n_dist, zero),
+            early_terminated=stats.early_terminated & vm,
+            iters=stats.iters)
+    return dists, ids, stats
+
+
+def _edge_weights(db: torch.Tensor, graph: torch.Tensor, metric: str,
+                  chunk: int) -> np.ndarray:
+    """Per-edge distances for the MST (non-finite -> 0), (n, M) numpy."""
+    n = graph.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=db.device)
+    out = [_chunk_dists(db, rows[s:s + chunk], graph[s:s + chunk], metric)
+           for s in range(0, n, chunk)]
+    w = torch.cat(out, dim=0)
+    return torch.where(torch.isfinite(w), w, torch.zeros_like(w)).cpu().numpy()
+
+
+def _meta_path(p: Path) -> Path:
+    """Metadata sidecar: the FULL array-file name + ".json"."""
+    return p.with_name(p.name + ".json")
+
+
+def _npz_path(p: Path) -> Path:
+    """The array file np.savez would have produced for `p`."""
+    return p if p.suffix == ".npz" else Path(str(p) + ".npz")
+
+
+def _known_fields(cls, d: dict) -> dict:
+    """Drop keys this version's dataclass doesn't know, with a warning (a
+    forward-compat load that loses knobs should be observable)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    dropped = sorted(set(d) - names)
+    if dropped:
+        warnings.warn(
+            f"index metadata has {cls.__name__} keys {dropped} unknown to "
+            f"this version — loading without them (their saved values are "
+            f"discarded)", stacklevel=2)
+    return {k: v for k, v in d.items() if k in names}
+
+
+def _config_from_dict(d: dict) -> IndexConfig:
+    from repro_torch.core.types import BuildConfig, IVFConfig, QuantConfig
+    return IndexConfig(
+        dim=d["dim"], metric=d["metric"],
+        index_type=d.get("index_type", "graph"),
+        n_shards=d.get("n_shards", 1),
+        build=BuildConfig(**_known_fields(BuildConfig, d["build"])),
+        search=SearchConfig(**_known_fields(SearchConfig, d["search"])),
+        quant=QuantConfig(**_known_fields(QuantConfig, d["quant"])),
+        ivf=IVFConfig(**_known_fields(IVFConfig, d.get("ivf", {}))),
+    )

@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
+`lib<name>.so` with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v
+
+at first use, into `build/repro_torch/<hash>/` at the repository root (or
+`$REPRO_TORCH_BUILD_DIR`), keyed on a hash of the source and the flags, so
+a fresh checkout builds everything and an unchanged one builds nothing.
+`build_all()` starts one `nvcc` per source at once and waits for all of
+them. The libraries are loaded with `ctypes`; no PyTorch header is
+compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("gather_dist", "traverse_step", "batch_dist")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: float = 0.0        # wall time of the last build_all()
+build_logs: Dict[str, str] = {}   # nvcc output per source (-Xptxas -v)
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        exe = "/usr/local/cuda/bin/nvcc"
+    if exe is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return exe
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / key / f"lib{name}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, all at once; returns
+    the wall seconds spent (0 when everything was built already)."""
+    global build_seconds
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    t0 = time.perf_counter()
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            out = _lib_path(name)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        errors = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate(timeout=900)
+            build_logs[name] = log
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    build_seconds = time.perf_counter() - t0
+    return build_seconds
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """`symbol` of lib<name>.so with its C signature declared; every
+    launcher returns the launch's cudaError_t as an int."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        if not _lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib

@@ -41,3 +41,10 @@ def deep_index(deep_ds):
 @pytest.fixture(scope="session")
 def bigann_index(bigann_ds):
     return _build(bigann_ds)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (run on the card with "
+        "`PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py`); "
+        "skips elsewhere")
