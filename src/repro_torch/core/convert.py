@@ -1,9 +1,11 @@
 """Carry an index built by the JAX package over into the port.
 
 `from_reference_arrays` takes the reference index's numpy state — `db`,
-`graph` and `order` (the arrays its format-2 save holds), its `entry`, and
-its config as `dataclasses.asdict` gives it — and returns a port `KBest`
-holding the same index, so both packages search the same graph.
+`graph` and `order`, and for the quantized kinds `pq_codebooks` and
+`pq_codes` or `sq_scale`, `sq_zero` and `sq_codes` (the arrays its
+format-2 save holds) — its `entry`, and its config as `dataclasses.asdict`
+gives it, and returns a port `KBest` holding the same index, so both
+packages search the same graph over the same codes.
 `KBest.load` of a reference save is the second route to the same state.
 """
 from __future__ import annotations

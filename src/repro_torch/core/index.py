@@ -6,15 +6,18 @@
     index.save(path) / KBest.load(path)
 
 The counterpart of the JAX package's `repro/core/index.py` for
-`index_type="graph"` with `QuantConfig.kind="none"` (DESIGN.md §3): kNN
-graph (brute / NN-descent) -> edge selection -> search-based and 2-hop
-refinement (A1) -> reverse-edge fill -> connectivity repair -> MST
-reordering (A2) -> medoid entry point; search runs the batched traversal
-of core.search with early termination (A3). Saves are the reference's
-format 2, readable by either package.
+`index_type="graph"` with `QuantConfig.kind` "none", "sq" or "pq"
+(DESIGN.md §3): kNN graph (brute / NN-descent) -> edge selection ->
+search-based and 2-hop refinement (A1) -> reverse-edge fill ->
+connectivity repair -> MST reordering (A2) -> medoid entry point -> the
+quantizer's training and codes over the reordered rows (A4); search runs
+the batched traversal of core.search with early termination (A3), and a
+quantized first pass is re-ranked with exact distances. Saves are the
+reference's format 2, readable by either package.
 
-The IVF family and the quantized kinds are not ported yet (ROADMAP.md,
-"Modules to port", items 7 and 8) and raise NotImplementedError.
+The IVF family and the kinds "pq4" and "bin" are not ported yet
+(ROADMAP.md, "Modules to port", items 7 and 8) and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.core import build as build_mod
 from repro_torch.core import persist
+from repro_torch.core import quantize as qz
 from repro_torch.core import reorder as reorder_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core.distance import normalize
@@ -39,9 +43,12 @@ from repro_torch.core.types import IndexConfig, SearchConfig
 _NOT_PORTED = {
     "ivf": "the IVF family is not ported yet (ROADMAP.md, Modules to "
            "port, item 8)",
-    "quant": "quantized graph kinds are not ported yet (ROADMAP.md, "
+    "quant": "the pq4 and bin kinds are not ported yet (ROADMAP.md, "
              "Modules to port, item 7)",
 }
+PORTED_KINDS = ("none", "sq", "pq")
+# the quantizer state a format-2 save holds beside db, graph and order
+QUANT_ARRAYS = ("pq_codebooks", "pq_codes", "sq_scale", "sq_zero", "sq_codes")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,7 +66,7 @@ def resolve_device(device=None) -> torch.device:
 def check_supported(config: IndexConfig) -> None:
     if config.index_type == "ivf":
         raise NotImplementedError(_NOT_PORTED["ivf"])
-    if config.quant.kind != "none":
+    if config.quant.kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"kind={config.quant.kind!r}: {_NOT_PORTED['quant']}")
 
@@ -79,6 +86,11 @@ class KBest:
         self.order: Optional[np.ndarray] = None      # new->old id map
         self._order_t: Optional[torch.Tensor] = None
         self.build_times: Dict[str, float] = {}      # seconds per stage
+        # quantization state
+        self.pq: Optional[qz.PQState] = None
+        self.pq_codes: Optional[torch.Tensor] = None  # (n, m) u8
+        self.sq: Optional[qz.SQState] = None
+        self.sq_codes: Optional[torch.Tensor] = None  # (n, d) u8
         self._fns = {}
 
     @property
@@ -155,7 +167,23 @@ class KBest:
 
         self._set_state(x, torch.as_tensor(graph, device=dev), entry, order)
         lap("upload_graph")
+        if cfg.quant.kind != "none":
+            self._train_quant(self.db)
+            lap("train_quant")
         return self
+
+    def _train_quant(self, x: torch.Tensor) -> None:
+        """Train + encode the configured quantizer over the stored
+        (reordered) db; also attaches a different quantizer to an
+        already-built graph."""
+        q = self.config.quant
+        if q.kind == "pq":
+            self.pq = qz.pq_train(x, q)
+            self.pq_codes = qz.pq_encode(self.pq.codebooks, x)
+        elif q.kind == "sq":
+            self.sq = qz.sq_train(x)
+            self.sq_codes = qz.sq_encode(self.sq, x)
+        self._fns = {}
 
     def _set_state(self, db, graph, entry, order) -> None:
         self.db = db.contiguous()
@@ -199,15 +227,34 @@ class KBest:
 
     def _search_impl(self, q: torch.Tensor, scfg: SearchConfig,
                      valid_mask: Optional[torch.Tensor]):
-        """Shared body of search/search_padded (the reference's `else`
-        branch: full-precision graph search). Returns (dists, ids, stats)."""
+        """Shared body of search/search_padded. Returns (dists, ids,
+        stats)."""
         n = self.db.shape[0]
         entry_ids = self._entry_ids(scfg.n_entries, n)
-        dist_fn = self._get_dist_fn(scfg.dist_impl)
-        dists, ids, stats = search_mod.search(
-            self.graph, q, entry_ids, dist_fn=dist_fn, cfg=scfg,
-            n_total=n, valid_mask=valid_mask,
-            expand_fn=self._get_expand_fn(scfg))
+        kind = self.config.quant.kind
+        if kind == "none":
+            dists, ids, stats = search_mod.search(
+                self.graph, q, entry_ids,
+                dist_fn=self._get_dist_fn("full", scfg.dist_impl), cfg=scfg,
+                n_total=n, valid_mask=valid_mask,
+                expand_fn=self._get_expand_fn("full", scfg))
+        else:
+            # quantized first pass over the whole widened queue (PQ walks
+            # per-query tables, SQ the queries), then the exact re-rank
+            operand = (qz.pq_query_tables(self.pq.codebooks, q, self._metric)
+                       if kind == "pq" else q)
+            wide = _widen(scfg)
+            _, ids, stats = search_mod.search(
+                self.graph, operand, entry_ids,
+                dist_fn=self._get_dist_fn(kind, scfg.dist_impl), cfg=wide,
+                n_total=n, valid_mask=valid_mask,
+                expand_fn=self._get_expand_fn(kind, wide))
+            dists, ids, n_exact = self._rerank(q, ids, scfg.k,
+                                               self.config.quant.rerank,
+                                               scfg.dist_impl)
+            # n_dist counts the exact re-rank distances too, as the
+            # reference does for every quantized family
+            stats = stats._replace(n_dist=stats.n_dist + n_exact)
         # translate internal (post-reorder) ids back to the user's add() ids
         if self._order_t is not None:
             ids = torch.where(ids >= 0,
@@ -224,25 +271,71 @@ class KBest:
         ids = (self.entry + np.concatenate([[0], off])) % n
         return torch.as_tensor(ids, dtype=torch.int32)
 
-    def _get_dist_fn(self, impl: str):
-        key = ("dist", impl)
+    def _get_dist_fn(self, kind: str, impl: str):
+        """The distance over `kind` ("full", "pq" or "sq"): the first
+        pass's, and "full" for the exact re-rank."""
+        key = (kind, impl)
         if key not in self._fns:
-            self._fns[key] = search_mod.make_dist_fn(self.db, self._metric,
-                                                     impl)
+            metric = self._metric
+            if kind == "full":
+                fn = search_mod.make_dist_fn(self.db, metric, impl)
+            elif kind == "pq":
+                fn = qz.pq_make_dist_fn(self.pq_codes, self.pq.m, impl)
+            elif kind == "sq":
+                fn = qz.sq_make_dist_fn(self.sq_codes, self.sq, metric, impl)
+            else:
+                raise ValueError(kind)
+            self._fns[key] = fn
         return self._fns[key]
 
-    def _get_expand_fn(self, scfg: SearchConfig):
-        """The fused gather+distance+sort step, engaged only for
-        kernel-impl beam searches without batch_B chunking (W=1 keeps the
-        gather-then-merge path, as in the reference)."""
+    def _get_expand_fn(self, kind: str, scfg: SearchConfig):
+        """The fused gather+distance+sort step over `kind`, engaged only
+        for kernel-impl beam searches without batch_B chunking (W=1 keeps
+        the gather-then-merge path, as in the reference)."""
         if scfg.dist_impl != "kernel" or scfg.beam_width <= 1 \
                 or scfg.batch_B != 0:
             return None
-        key = ("expand", scfg.L, scfg.beam_width)
+        L, W = scfg.L, scfg.beam_width
+        key = (kind, "expand", L, W)
         if key not in self._fns:
-            self._fns[key] = search_mod.make_expand_fn(
-                self.db, self._metric, L=scfg.L, n_beam=scfg.beam_width)
+            from repro_torch.kernels import ops as kops
+            metric = self._metric
+            if kind == "full":
+                fn = search_mod.make_expand_fn(self.db, metric, L=L, n_beam=W)
+            elif kind == "pq":
+                m, K, codes = self.pq.m, self.pq.ksub, self.pq_codes
+
+                def fn(tables, nbr_ids):
+                    return kops.fused_expand_pq(
+                        tables.reshape(tables.shape[0], m, K), codes,
+                        nbr_ids, L=L, n_beam=W)
+            elif kind == "sq":
+                codes, sq = self.sq_codes, self.sq
+
+                def fn(queries, nbr_ids):
+                    return kops.fused_expand_sq(
+                        queries, codes, sq.scale, sq.zero, nbr_ids,
+                        metric=metric, L=L, n_beam=W)
+            else:
+                raise ValueError(kind)
+            self._fns[key] = fn
         return self._fns[key]
+
+    def _rerank(self, q: torch.Tensor, ids: torch.Tensor, k: int,
+                rerank: int, impl: str = "ref"):
+        """Exact re-rank of the first pass's top candidates (gather_dist
+        when impl is "kernel", a plain gather otherwise). Returns (dists
+        (Q, k), ids (Q, k), n_exact (Q,) int32: the exact distances
+        computed). The top-k breaks ties toward the lower position, as
+        the reference's lax.top_k does."""
+        r = rerank if rerank > 0 else min(4 * k, ids.shape[1])
+        r = min(max(r, k), ids.shape[1])   # never fewer candidates than k
+        cand = ids[:, :r].contiguous()
+        d = self._get_dist_fn("full", impl)(q, cand)
+        d = torch.where(cand >= 0, d, torch.full_like(d, float("inf")))
+        dists, pos = build_mod.stable_topk_smallest(d, k)
+        n_exact = torch.sum(cand >= 0, dim=1).to(torch.int32)
+        return dists, torch.gather(cand, 1, pos), n_exact
 
     # ------------------------------------------------------------ save/load
     def save(self, path: str, _label: str = "index") -> None:
@@ -255,6 +348,13 @@ class KBest:
                 "graph": self.graph.cpu().numpy()}
         if self.order is not None:
             arrs["order"] = np.asarray(self.order)
+        if self.pq is not None:
+            arrs["pq_codebooks"] = self.pq.codebooks.cpu().numpy()
+            arrs["pq_codes"] = self.pq_codes.cpu().numpy()
+        if self.sq is not None:
+            arrs["sq_scale"] = self.sq.scale.cpu().numpy()
+            arrs["sq_zero"] = self.sq.zero.cpu().numpy()
+            arrs["sq_codes"] = self.sq_codes.cpu().numpy()
         sums = persist.save_arrays(_npz_path(p), arrs, f"{_label}.arrays")
         meta = {"entry": self.entry,
                 "config": dataclasses.asdict(self.config),
@@ -286,16 +386,26 @@ class KBest:
 def _from_arrays(arrays: dict, entry: int, config: IndexConfig,
                  device) -> KBest:
     idx = KBest(config, device=device)
-    extra = sorted(set(arrays) - {"db", "graph", "order"})
+    extra = sorted(set(arrays) - {"db", "graph", "order", *QUANT_ARRAYS})
     if extra:
         raise NotImplementedError(
             f"index arrays {extra} belong to a family or kind not ported "
             f"yet (ROADMAP.md, Modules to port)")
-    db = torch.as_tensor(np.array(arrays["db"], dtype=np.float32),
-                         device=idx.device)
-    graph = torch.as_tensor(np.array(arrays["graph"], dtype=np.int32),
-                            device=idx.device)
-    idx._set_state(db, graph, entry, arrays.get("order"))
+
+    def put(name, dtype):
+        return torch.as_tensor(np.array(arrays[name], dtype=dtype),
+                               device=idx.device)
+
+    idx._set_state(put("db", np.float32), put("graph", np.int32), entry,
+                   arrays.get("order"))
+    if "pq_codebooks" in arrays:
+        books = put("pq_codebooks", np.float32)
+        idx.pq = qz.PQState(books, books.shape[0], books.shape[2])
+        idx.pq_codes = put("pq_codes", np.uint8)
+    if "sq_scale" in arrays:
+        idx.sq = qz.SQState(put("sq_scale", np.float32),
+                            put("sq_zero", np.float32))
+        idx.sq_codes = put("sq_codes", np.uint8)
     return idx
 
 
@@ -331,6 +441,13 @@ def mask_padded_lanes(vm: torch.Tensor, dists: torch.Tensor,
             early_terminated=stats.early_terminated & vm,
             iters=stats.iters)
     return dists, ids, stats
+
+
+def _widen(scfg: SearchConfig) -> SearchConfig:
+    """Quantized first passes return their whole (wide) queue, so the
+    exact re-rank has at least 4k candidates to work with."""
+    want = max(scfg.L, 4 * scfg.k)
+    return dataclasses.replace(scfg, L=want, k=want)
 
 
 def _edge_weights(db: torch.Tensor, graph: torch.Tensor, metric: str,

@@ -17,9 +17,10 @@ structural knobs (cluster count, OOD shift) fixed so recall curves are
 comparable across scales.
 
 A copy of the JAX package's `repro/data/vectors.py` (numpy), so the same
-seed gives the same vectors in both packages. One addition: given a
-`device`, the exact ground truth is computed there, on batch_dist tiles
-with a stable top-k, instead of by numpy on the host.
+seed gives the same vectors in both packages. One difference: the exact
+ground truth is computed on the card by default, on batch_dist tiles with
+a stable top-k; `device="cpu"` keeps the reference's numpy path on the
+host.
 """
 from __future__ import annotations
 
@@ -114,9 +115,17 @@ def exact_topk_device(base: np.ndarray, queries: np.ndarray, k: int,
 
 def make_dataset(name: str, n: int = 20_000, n_queries: int = 200,
                  k: int = 100, seed: int = 0, device=None) -> VectorDataset:
-    """`device` (e.g. "cuda") computes the ground truth there; None keeps
-    the reference's host numpy path."""
+    """The exact ground truth runs on `device`: None means the card (and
+    raises without one, as KBest does), "cpu" the reference's host numpy
+    path, any other device batch_dist tiles there."""
     import zlib
+    if device is None:
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_dataset computes its ground truth on a "
+                               "CUDA device by default and none is "
+                               "available; pass device='cpu' for the host")
+        device = "cuda"
     # stable per-dataset seed: python's hash() is randomized per process
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % 65536)
     if name == "glove_like":
@@ -153,7 +162,7 @@ def make_dataset(name: str, n: int = 20_000, n_queries: int = 200,
         base, queries = allx[:n], allx[n:]
     else:
         raise ValueError(name)
-    if device is None:
+    if str(device) == "cpu":
         gt = exact_topk(base, queries, k, metric)
     else:
         gt = exact_topk_device(base, queries, k, metric, device)

@@ -7,7 +7,8 @@ Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
          -Xcompiler -fPIC -Xptxas -v
 
 at first use, into `build/repro_torch/<hash>/` at the repository root (or
-`$REPRO_TORCH_BUILD_DIR`), keyed on a hash of the source and the flags, so
+`$REPRO_TORCH_BUILD_DIR`), keyed on a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so
 a fresh checkout builds everything and an unchanged one builds nothing.
 `build_all()` starts one `nvcc` per source at once and waits for all of
 them. The libraries are loaded with `ctypes`; no PyTorch header is
@@ -25,7 +26,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gather_dist", "traverse_step", "batch_dist")
+SOURCES = ("gather_dist", "traverse_step", "batch_dist", "pq_adc")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -53,6 +54,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return build_dir() / key / f"lib{name}.so"
 

@@ -16,13 +16,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.gather_dist import (METRIC_CODES, check, raise_on,
                                              stream_ptr)
 
-launches = 0
+launches = {"batch_dist": 0}
 # the C launcher's signature: pointers, ints, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def batch_dist(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
-    global launches
     check(q, "q", torch.float32, 2)
     check(x, "x", torch.float32, 2)
     Q, d = q.shape
@@ -41,5 +40,5 @@ def batch_dist(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
              ctypes.c_int(d), ctypes.c_int(METRIC_CODES[metric]),
              stream_ptr(q))
     raise_on(err, "batch_dist")
-    launches += 1
+    launches["batch_dist"] += 1
     return out

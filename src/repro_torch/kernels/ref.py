@@ -1,8 +1,9 @@
-"""Plain torch versions of the port's three kernels.
+"""Plain torch versions of the port's kernels.
 
 Each function is the semantic specification of its CUDA kernel, mirroring
 the JAX package's `repro/kernels/ref.py` (`batch_dist_ref`,
-`gather_dist_ref`, `sorted_block_ref`, `fused_expand_ref`). The CPU path of
+`gather_dist_ref`, `sq_gather_dist_ref`, `pq_adc_ref`, `sorted_block_ref`
+and the `fused_expand{,_sq,_pq}_ref` family). The CPU path of
 `kernels/ops.py` runs these; on the card they serve only as the yardstick
 the kernels are held against.
 """
@@ -34,6 +35,37 @@ def gather_dist_ref(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
         out = torch.sum(diff * diff, dim=-1)
     else:
         out = -torch.einsum("qmd,qd->qm", vecs, qf)
+    return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
+
+
+def sq_gather_dist_ref(q: torch.Tensor, codes: torch.Tensor,
+                       scale: torch.Tensor, zero: torch.Tensor,
+                       ids: torch.Tensor, metric: str) -> torch.Tensor:
+    """(Q, d) queries, (n, d) u8 codes, (d,) or (1, d) scale/zero, (Q, M)
+    ids -> (Q, M) distances against the affine-dequantized rows
+    (code * scale + zero). Invalid ids (< 0) produce +inf."""
+    vecs = (codes[torch.clamp(ids, min=0).long()].float()
+            * scale.reshape(-1)[None, None, :]
+            + zero.reshape(-1)[None, None, :])
+    qf = q.float()
+    if metric == "l2":
+        diff = vecs - qf[:, None, :]
+        out = torch.sum(diff * diff, dim=-1)
+    else:
+        out = -torch.einsum("qmd,qd->qm", vecs, qf)
+    return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
+
+
+def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor,
+               ids: torch.Tensor) -> torch.Tensor:
+    """(Q, m, K) luts, (n, m) uint8 codes, (Q, B) ids -> (Q, B) ADC dists.
+
+    dist[q, b] = sum_j lut[q, j, codes[ids[q, b], j]]; invalid ids -> +inf.
+    """
+    c = codes[torch.clamp(ids, min=0).long()].long()           # (Q, B, m)
+    g = torch.gather(lut[:, None, :, :].expand(-1, c.shape[1], -1, -1), 3,
+                     c[..., None])[..., 0]
+    out = torch.sum(g, dim=-1)
     return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
 
 
@@ -70,3 +102,19 @@ def fused_expand_ref(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
     per-expansion bests and tie counts; gather_dist then the epilogue."""
     return sorted_block_ref(gather_dist_ref(q, db, ids, metric), ids,
                             L, n_beam)
+
+
+def fused_expand_sq_ref(q: torch.Tensor, codes: torch.Tensor,
+                        scale: torch.Tensor, zero: torch.Tensor,
+                        ids: torch.Tensor, metric: str, L: int,
+                        n_beam: int = 1):
+    """SQ twin: sq_gather_dist_ref then the sorted-block epilogue."""
+    return sorted_block_ref(
+        sq_gather_dist_ref(q, codes, scale, zero, ids, metric), ids, L,
+        n_beam)
+
+
+def fused_expand_pq_ref(lut: torch.Tensor, codes: torch.Tensor,
+                        ids: torch.Tensor, L: int, n_beam: int = 1):
+    """PQ-ADC twin: pq_adc_ref then the sorted-block epilogue."""
+    return sorted_block_ref(pq_adc_ref(lut, codes, ids), ids, L, n_beam)

@@ -157,14 +157,35 @@ def test_sorted_block_epilogue_matches_reference():
         assert np.array_equal(a, b)
 
 
+KERNELS = ("gather_dist", "fused_expand", "batch_dist", "sq_gather_dist",
+           "fused_expand_sq", "pq_adc", "fused_expand_pq")
+
+
+def _quant_case(seed, Q, n, d, m):
+    """SQ codes, scale, zero and PQ tables, codes for _case's shapes."""
+    r = np.random.default_rng(seed)
+    sq = (r.integers(0, 256, size=(n, d)).astype(np.uint8),
+          (r.random(d) * 0.02 + 1e-3).astype(np.float32),
+          (-r.random(d)).astype(np.float32))
+    pq = (r.normal(size=(Q, m, 256)).astype(np.float32),
+          r.integers(0, 256, size=(n, m)).astype(np.uint8))
+    return sq, pq
+
+
 def test_cpu_wrappers_launch_nothing():
     tops.reset_launch_counts()
     q, db, ids = _case(1, 3, 8, 40, 96)
-    tops.gather_dist(_t(q), _t(db), _t(ids))
-    tops.fused_expand(_t(q), _t(db), _t(ids), L=4, n_beam=2)
-    tops.batch_dist(_t(q), _t(db))
-    assert tops.launch_counts() == {"gather_dist": 0, "fused_expand": 0,
-                                    "batch_dist": 0}
+    (codes, scale, zero), (lut, pcodes) = _quant_case(1, 3, 40, 96, 16)
+    q, db, ids, codes, scale, zero, lut, pcodes = (
+        _t(a) for a in (q, db, ids, codes, scale, zero, lut, pcodes))
+    tops.gather_dist(q, db, ids)
+    tops.fused_expand(q, db, ids, L=4, n_beam=2)
+    tops.batch_dist(q, db)
+    tops.sq_gather_dist(q, codes, scale, zero, ids)
+    tops.fused_expand_sq(q, codes, scale, zero, ids, L=4, n_beam=2)
+    tops.pq_adc(lut, pcodes, ids)
+    tops.fused_expand_pq(lut, pcodes, ids, L=4, n_beam=2)
+    assert tops.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +218,24 @@ def test_cuda_kernels_match_plain(cuda, metric):
     assert torch.equal(out[1], exp[1]) and torch.equal(out[3], exp[3])
     _close(tops.batch_dist(q, db, metric=metric),
            tref.batch_dist_ref(q, db, metric))
+    (codes, scale, zero), (lut, pcodes) = (
+        tuple(torch.as_tensor(a, device=cuda) for a in part)
+        for part in _quant_case(4, 64, 5000, 96, 16))
+    _close(tops.sq_gather_dist(q, codes, scale, zero, ids, metric=metric),
+           tref.sq_gather_dist_ref(q, codes, scale, zero, ids, metric))
+    _close(tops.pq_adc(lut, pcodes, ids), tref.pq_adc_ref(lut, pcodes, ids))
+    for out, exp in (
+            (tops.fused_expand_sq(q, codes, scale, zero, ids, metric=metric,
+                                  L=64, n_beam=4),
+             tref.fused_expand_sq_ref(q, codes, scale, zero, ids, metric, 64,
+                                      4)),
+            (tops.fused_expand_pq(lut, pcodes, ids, L=64, n_beam=4),
+             tref.fused_expand_pq_ref(lut, pcodes, ids, 64, 4))):
+        _close(out[0], exp[0])
+        _close(out[2], exp[2])
+        assert torch.equal(out[1], exp[1]) and torch.equal(out[3], exp[3])
     after = tops.launch_counts()
+    assert set(after) == set(KERNELS)
     assert all(after[k] == before[k] + 1 for k in after)
 
 

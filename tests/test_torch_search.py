@@ -138,12 +138,13 @@ def test_cosine_matches_reference(deep_index, deep_ds):
           port.search(q, search_cfg=s, with_stats=True))
 
 
-def test_unported_families_raise():
+@pytest.mark.parametrize("family", ["ivf", "pq4", "bin"])
+def test_unported_families_raise(family):
     from repro_torch.core.types import IndexConfig, QuantConfig
+    cfg = (IndexConfig(dim=8, index_type="ivf") if family == "ivf" else
+           IndexConfig(dim=8, quant=QuantConfig(kind=family)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KBest(IndexConfig(dim=8, index_type="ivf"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KBest(IndexConfig(dim=8, quant=QuantConfig(kind="sq")), device="cpu")
+        KBest(cfg, device="cpu")
 
 
 def test_default_device_is_the_card():
