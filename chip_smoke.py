@@ -21,7 +21,15 @@ Phases:
      of the built index, trained, and served like phase 4 at W=4 and W=1,
      kernel and plain, with a save/load round trip of each, `pq8` once
      more with the re-rank over the whole queue of L, and a check that PQ
-     training on the card is deterministic.
+     training on the card is deterministic;
+  6. the 8- and 12-byte kinds on the same graph, the same way: the
+     registry's `pq4` and `pq4+u8lut` (pq_m=16, L=96) and the `bin`
+     preset (L=320, re-rank of rescore_factor * k = 320), all 10,000
+     queries at W=4 and W=1 on the kernels, one batch of each on the plain
+     path, QPS in turns with `none`, a save/load round trip of a pq4 and
+     a bin index, and what caps their recall at 1M: pq4 re-ranked over
+     its whole queue, bin twice as deep, and the share of the true top-10
+     within bin's exact Hamming top-320 over all rows.
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -210,29 +218,45 @@ class Case(NamedTuple):
     plain: Callable
     cost: Callable
     sets: list
+    exact: bool = False  # every output must equal the plain version's
 
 
-def pq_bytes(codes, ids) -> int:
-    """Bytes of the (Q, m, K) f32 tables and the (n, m) u8 codes that a
-    PQ ADC over `ids` must read: per query and subspace, the distinct
-    32-byte sectors of its table that the valid ids' codes hit, and per
-    valid id its code row, m bytes rounded up to whole sectors."""
+def pq_bytes(codes, ids, nibbles: bool = False) -> int:
+    """Bytes of the (Q, m, K) f32 tables and the (n, m) u8 codes (with
+    `nibbles`, (n, m/2) bytes of two codes each) that a PQ ADC over `ids`
+    must read: per query and subspace, the distinct 32-byte sectors of its
+    table that the valid ids' codes hit, and per valid id the sectors of
+    its code row."""
     import torch
     valid = ids >= 0
-    sec = codes[ids.clamp(min=0).long()].long() * 4 // SECTOR   # (Q, B, m)
+    c = codes[ids.clamp(min=0).long()].long()
+    if nibbles:                       # byte j: subspace 2j low, 2j+1 high
+        c = torch.stack([c & 15, c >> 4], dim=-1).flatten(-2)
+    sec = c * 4 // SECTOR                                         # (Q, B, m)
     sec = torch.where(valid[..., None], sec, torch.full_like(sec, -1))
     sec = sec.sort(dim=1).values
     first = torch.ones_like(sec, dtype=torch.bool)
     first[:, 1:] = sec[:, 1:] != sec[:, :-1]
     tables = int((first & (sec >= 0)).sum()) * SECTOR
-    return tables + int(valid.sum()) * -(-codes.shape[1] // SECTOR) * SECTOR
+    return tables + row_bytes(ids, codes.shape[1])
+
+
+def row_bytes(ids, width: int) -> int:
+    """Bytes of the 32-byte sectors that the rows of `width` bytes of the
+    valid ids span (a 12-byte bin row spans two where it straddles a
+    sector boundary)."""
+    i = ids[ids >= 0].long()
+    first = i * width // SECTOR
+    last = ((i + 1) * width - 1) // SECTOR
+    return int((last - first + 1).sum()) * SECTOR
 
 
 def kernel_inputs(db) -> dict:
     """Phase 2's operands over the (n, d) f32 rows `db`: Q=1000 unit
     queries, SQ codes of the n rows with per-dimension scale and zero, PQ8
-    codes with m=16 subspaces of K=256 centroids, and the generator that
-    draws the ids and tables of kernel_cases."""
+    codes with m=16 subspaces of K=256 centroids, PQ4 codes (m=16, two a
+    byte), the queries' and rows' 96 sign bits (three int32 words each),
+    and the generator that draws the ids and tables of kernel_cases."""
     import torch
     dev = db.device
     n, d = db.shape
@@ -246,17 +270,25 @@ def kernel_inputs(db) -> dict:
     zero = -torch.rand((d,), generator=g, device=dev) * 0.5
     pcodes = torch.randint(0, K, (n, m), generator=g, device=dev,
                            dtype=torch.int32).to(torch.uint8)
+    p4codes = torch.randint(0, 256, (n, m // 2), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    nw = -(-d // 32)
+    words = torch.randint(-2 ** 31, 2 ** 31, (n + Q, nw), generator=g,
+                          device=dev, dtype=torch.int64).to(torch.int32)
     return dict(db=db, q=q, codes=codes, scale=scale, zero=zero,
-                pcodes=pcodes, K=K, g=g)
+                pcodes=pcodes, K=K, g=g, p4codes=p4codes, signs=words[:n],
+                qsigns=words[n:].contiguous())
 
 
 def kernel_cases(inp: dict) -> "list[Case]":
     """Every kernel at the shapes the served paths give it: the gathers at
     seeds (M=8) and W=1 steps (M=24), the fused steps at the W=4 step
     (C=96, L=MAIN_L; fused_expand also at the bigann preset's C=128,
-    L=192), both metrics where a kernel takes one, and batch_dist over the
-    whole db. Ids are random rows with 5% set to -1; the fused steps' ids
-    repeat rows across expansions, so exact ties occur. Each case holds
+    L=192, fused_expand_bin also at the bin preset's L=320), both metrics
+    where a kernel takes one, and batch_dist over the whole db. Ids are
+    random rows with 5% set to -1; the fused steps' ids repeat rows across
+    expansions, so exact ties occur (and Hamming distances of random signs
+    tie everywhere). The bin kernels must equal their plain versions. Each case holds
     enough argument sets that they gather twice the card's L2 in all. The
     kernels are called through `ops`, so any checkout's can be timed."""
     import torch
@@ -264,7 +296,9 @@ def kernel_cases(inp: dict) -> "list[Case]":
     db, q, codes, scale, zero, pcodes, K, g = (
         inp[k] for k in ("db", "q", "codes", "scale", "zero", "pcodes", "K",
                          "g"))
+    p4codes, signs, qsigns = inp["p4codes"], inp["signs"], inp["qsigns"]
     dev, (n, d), (Q, m) = db.device, db.shape, (q.shape[0], pcodes.shape[1])
+    nw = signs.shape[1]
     cases = []
 
     def rand_ids(M):
@@ -282,17 +316,17 @@ def kernel_cases(inp: dict) -> "list[Case]":
             ids[:, w * M + 3] = ids[:, w]
         return ids
 
-    def lut():
-        return torch.randn((Q, m, K), generator=g, device=dev)
+    def lut(k=K):
+        return torch.randn((Q, m, k), generator=g, device=dev)
 
     def valid(ids):
         return int((ids >= 0).sum())
 
-    def add(name, shape, main, fused, kern, plain, cost, draw):
+    def add(name, shape, main, fused, kern, plain, cost, draw, exact=False):
         first = draw()
         k = min(256, max(1, -(-2 * L2_BYTES // cost(*first)[0])))
         cases.append(Case(name, shape, main, fused, kern, plain, cost,
-                          [first] + [draw() for _ in range(k - 1)]))
+                          [first] + [draw() for _ in range(k - 1)], exact))
 
     # ---- the gathers: seeds (M=8) and W=1 steps (M=24); bytes: the valid
     # rows or codes, ids and outputs, queries, SQ scale and zero ----
@@ -321,6 +355,20 @@ def kernel_cases(inp: dict) -> "list[Case]":
             lambda t, ids, M=M: (pq_bytes(pcodes, ids) + Q * M * 8,
                                  float(valid(ids) * m)),
             lambda M=M: (lut(), rand_ids(M)))
+        add("pq4_adc", f"Q={Q} B={M} m={m} K=16 n={n}", M == 24, False,
+            lambda t, ids: ops.pq4_adc(t, p4codes, ids),
+            lambda t, ids: ref.pq4_adc_ref(t, p4codes, ids),
+            lambda t, ids, M=M: (pq_bytes(p4codes, ids, nibbles=True)
+                                 + Q * M * 8, float(valid(ids) * m)),
+            lambda M=M: (lut(16), rand_ids(M)))
+        # bin: the valid rows' sectors, the queries' words, ids, outputs;
+        # an XOR, a popcount and an add a word
+        add("bin_dist", f"Q={Q} B={M} nw={nw} n={n}", M == 24, False,
+            lambda ids: ops.bin_dist(qsigns, signs, ids),
+            lambda ids: ref.bin_dist_ref(qsigns, signs, ids),
+            lambda ids, M=M: (row_bytes(ids, nw * 4) + Q * nw * 4
+                              + Q * M * 8, 3.0 * valid(ids) * nw),
+            lambda M=M: (rand_ids(M),), exact=True)
 
     # ---- the fused steps; bytes as the gathers', with (Q, T) sorted
     # dists and ids and (Q, W) bests and ties out ----
@@ -358,6 +406,26 @@ def kernel_cases(inp: dict) -> "list[Case]":
                 lambda t, ids, io=io: (pq_bytes(pcodes, ids) + io,
                                        float(valid(ids) * m)),
                 lambda W=W, M=M: (lut(), tied_ids(W, M)))
+            add("fused_expand_pq4", f"Q={Q} W={W} M={M} L={L} m={m} K=16 "
+                f"n={n}", True, True,
+                lambda t, ids, L=L, W=W: ops.fused_expand_pq4(
+                    t, p4codes, ids, L=L, n_beam=W),
+                lambda t, ids, L=L, W=W: ref.fused_expand_pq4_ref(
+                    t, p4codes, ids, L, W),
+                lambda t, ids, io=io: (pq_bytes(p4codes, ids, nibbles=True)
+                                       + io, float(valid(ids) * m)),
+                lambda W=W, M=M: (lut(16), tied_ids(W, M)))
+            # the bin preset's queue is L=320 (T = C = 96 all the same)
+            for Lb in (L, 320):
+                add("fused_expand_bin", f"Q={Q} W={W} M={M} L={Lb} nw={nw} "
+                    f"n={n}", Lb == 320, True,
+                    lambda ids, Lb=Lb, W=W: ops.fused_expand_bin(
+                        qsigns, signs, ids, L=Lb, n_beam=W),
+                    lambda ids, Lb=Lb, W=W: ref.fused_expand_bin_ref(
+                        qsigns, signs, ids, Lb, W),
+                    lambda ids, io=io: (row_bytes(ids, nw * 4) + Q * nw * 4
+                                        + io, 3.0 * valid(ids) * nw),
+                    lambda W=W, M=M: (tied_ids(W, M),), exact=True)
 
     # ---- batch_dist: Q x n x d, both metrics; a 4 GB output a call ----
     for mt in ("ip", "l2"):
@@ -382,7 +450,16 @@ def phase_kernels(db):
         out, exp = c.kern(*c.sets[0]), c.plain(*c.sets[0])
         torch.cuda.synchronize()
         note = ""
-        if c.fused:
+        if c.exact:
+            outs = out if c.fused else (out,)
+            exps = exp if c.fused else (exp,)
+            same = [torch.equal(a, b) for a, b in zip(outs, exps)]
+            assert all(same), f"{c.name} {c.shape}: outputs equal {same}"
+            if c.fused:
+                assert int(exp[3].sum()) > 0, "no tie was counted"
+                note = ", every output equal"
+            err = 0.0
+        elif c.fused:
             ok_d, err = close(out[0], exp[0])
             ok_b, err_b = close(out[2], exp[2])
             ids_ok, n_sep = separated_ids_equal(out, exp)
@@ -567,11 +644,7 @@ def phase_main():
         REPORT["main"]["rows"].append(row)
         if s.L == MAIN_L:
             results[(s.beam_width, s.dist_impl)] = ids
-        log(f"[main] W={s.beam_width} L={s.L} {s.dist_impl}: recall@10 "
-            f"{row['recall']:.4f}, QPS {row['qps']:.0f}, iters mean "
-            f"{row['iters_mean']:.1f} max {row['iters_max']}, hops/q "
-            f"{row['hops_per_query']:.1f}, dists/q "
-            f"{row['dists_per_query']:.1f}, ET rate {row['et_rate']:.3f}")
+        log_row("main", row)
     for W in (4, 1):
         s = dataclasses.replace(kern, beam_width=W)
         dev_ms, wall_ms = device_busy(
@@ -621,6 +694,30 @@ def phase_main():
     return counts, idx, ds, rec
 
 
+def attach(idx, quant, search=None):
+    """A clone of the built index `idx` (db, graph, entry, order) with
+    `quant` trained over its rows, as the reference's tuner attaches a
+    quantizer, and `search` as its search config when given; returns the
+    clone and the seconds of its training."""
+    from repro_torch.core.index import KBest
+    cfg = dataclasses.replace(idx.config, quant=quant,
+                              search=search or idx.config.search)
+    qidx = KBest(cfg, device=DEVICE)
+    qidx._set_state(idx.db, idx.graph, idx.entry, idx.order)
+    t0 = time.perf_counter()
+    qidx._train_quant(qidx.db)
+    sync()
+    return qidx, time.perf_counter() - t0
+
+
+def log_row(tag, row):
+    log(f"[{tag}] W={row['W']} L={row['L']} {row['dist_impl']}: recall@10 "
+        f"{row['recall']:.4f}, QPS {row['qps']:.0f}, iters mean "
+        f"{row['iters_mean']:.1f} max {row['iters_max']}, hops/q "
+        f"{row['hops_per_query']:.1f}, dists/q {row['dists_per_query']:.1f}, "
+        f"ET rate {row['et_rate']:.3f}")
+
+
 def phase_quant(idx, ds, none_rec):
     """The sq preset and the registry's pq8 on phase 4's graph: a clone of
     the built index (db, graph, entry, order) with the quantizer trained
@@ -644,13 +741,8 @@ def phase_quant(idx, ds, none_rec):
     REPORT["quant"] = {}
     ops.reset_launch_counts()
     for kind, quant in quants.items():
-        cfg = dataclasses.replace(idx.config, quant=quant)
-        qidx = KBest(cfg, device=DEVICE)
-        qidx._set_state(idx.db, idx.graph, idx.entry, idx.order)
-        t0 = time.perf_counter()
-        qidx._train_quant(qidx.db)
-        sync()
-        train_s = time.perf_counter() - t0
+        qidx, train_s = attach(idx, quant)
+        cfg = qidx.config
         code_b = qz.code_bytes_per_vector(qidx)
         log(f"[{kind}] {quant}: trained and encoded {len(qidx.db):,} rows "
             f"in {train_s:.1f} s, {code_b} code bytes per vector")
@@ -665,12 +757,7 @@ def phase_quant(idx, ds, none_rec):
                 rep_q["rows"].append(row)
                 results[(W, s.dist_impl)] = ids
                 rec[(W, s.dist_impl)] = row["recall"]
-                log(f"[{kind}] W={W} L={s.L} {s.dist_impl}: recall@10 "
-                    f"{row['recall']:.4f}, QPS {row['qps']:.0f}, iters mean "
-                    f"{row['iters_mean']:.1f} max {row['iters_max']}, hops/q "
-                    f"{row['hops_per_query']:.1f}, dists/q "
-                    f"{row['dists_per_query']:.1f}, ET rate "
-                    f"{row['et_rate']:.3f}")
+                log_row(kind, row)
         dev_ms, wall_ms = device_busy(lambda: qidx.search(qb, search_cfg=s4))
         log(f"[{kind}] profile W=4, one batch of {BATCH}: device kernels "
             f"{dev_ms:.2f} ms of {wall_ms:.2f} ms wall (idle share "
@@ -744,6 +831,161 @@ def phase_quant(idx, ds, none_rec):
     return counts
 
 
+def phase_pq4_bin(idx, ds, none_rec):
+    """The registry's pq4 and pq4+u8lut (L=96) and the bin preset (L=320,
+    re-rank of rescore_factor * k) on phase 4's graph, attached as in
+    phase 5: all queries at W=4 and W=1 on the kernels, one batch per kind
+    and W on the plain path, the idle share, QPS in turns with none, and a
+    1M save/load round trip of a pq4 and a bin index. The fault floors
+    (written before the first run) detect faults; they are no targets."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.kbest import bin_index_config
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.index import KBest
+    from repro_torch.core.types import QuantConfig
+    from repro_torch.kernels import ops
+
+    preset = bin_index_config("deep_like")
+    bin_search = dataclasses.replace(
+        idx.config.search, L=preset.search.L,
+        rescore_factor=preset.search.rescore_factor)
+    reg = qz.quant_variants()
+    kinds = {"pq4": (QuantConfig(**reg["pq4"]), None, 8),
+             "pq4+u8lut": (QuantConfig(**reg["pq4+u8lut"]), None, 8),
+             "bin": (preset.quant, bin_search, 12)}
+    qb = ds.queries[:BATCH]
+    served = {"none": idx}
+    rep = REPORT["pq4_bin"] = {}
+    rec = {}
+    ops.reset_launch_counts()
+    for name, (quant, search, want_bytes) in kinds.items():
+        qidx, train_s = attach(idx, quant, search)
+        code_b = qz.code_bytes_per_vector(qidx)
+        log(f"[{name}] {quant}: trained and encoded {len(qidx.db):,} rows in "
+            f"{train_s:.1f} s, {code_b} code bytes per vector")
+        assert code_b == want_bytes, (name, code_b)
+        r = rep[name] = dict(train_s=train_s, code_bytes=code_b, rows=[])
+        kern = dataclasses.replace(qidx.config.search, dist_impl="kernel")
+        for W in (4, 1):
+            s = dataclasses.replace(kern, beam_width=W)
+            ids, row = serve(qidx, ds.queries, ds.gt_ids, s)
+            row["L"] = s.L
+            _, plain_ids = qidx.search(qb, search_cfg=dataclasses.replace(
+                s, dist_impl="ref"))
+            row["plain_ids_equal"] = float(np.mean(
+                ids[:BATCH] == plain_ids.cpu().numpy()))
+            r["rows"].append(row)
+            rec[(name, W)] = row["recall"]
+            log_row(name, row)
+            log(f"[{name}] W={W} kernel vs plain on one batch: ids equal on "
+                f"{row['plain_ids_equal']:.4%} of (query, rank); kind none "
+                f"at this W: {none_rec[(W, 'kernel')]:.4f}")
+            assert row["plain_ids_equal"] >= (1.0 if name == "bin"
+                                              else 0.995), row
+        s4 = dataclasses.replace(kern, beam_width=4)
+        dev_ms, wall_ms = device_busy(lambda: qidx.search(qb, search_cfg=s4))
+        log(f"[{name}] profile W=4, one batch of {BATCH}: device kernels "
+            f"{dev_ms:.2f} ms of {wall_ms:.2f} ms wall (idle share "
+            f"{1 - dev_ms / wall_ms:.1%}, under the profiler)")
+        r["profile_W4"] = dict(device_ms=dev_ms, wall_ms=wall_ms)
+        if name in ("pq4", "bin"):
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                qidx.save(f"{tmp}/deep1m.graph")
+                back = KBest.load(f"{tmp}/deep1m.graph", device=DEVICE)
+                rt_s = time.perf_counter() - t0
+            _, i2 = back.search(qb, search_cfg=s4)
+            _, i3 = qidx.search(qb, search_cfg=s4)
+            assert torch.equal(i2, i3)
+            log(f"[{name}] save/load round trip {rt_s:.1f} s: identical ids")
+            r["save_load_s"] = rt_s
+            del back
+        served[name] = qidx
+    counts = ops.launch_counts()
+    log(f"[pq4/bin] kernel launches on these paths: {counts}")
+    rep["launches"] = counts
+    for k in ("pq4_adc", "fused_expand_pq4", "bin_dist", "fused_expand_bin",
+              "gather_dist"):
+        assert counts[k] > 0, counts
+    # fault floors: a first pass this weak means a broken codec or kernel
+    assert rec[("pq4", 4)] >= 0.20, rec
+    assert abs(rec[("pq4+u8lut", 4)] - rec[("pq4", 4)]) <= 0.02, rec
+    assert rec[("bin", 4)] >= 0.60 and rec[("bin", 1)] >= 0.60, rec
+    probe_depth(idx, ds, served, kinds["pq4"][0])
+    # QPS in turns at W=4 on the kernels, each kind at its own L
+    qps = {name: [] for name in served}
+    for name in [*served, *reversed(served)]:
+        s4 = dataclasses.replace(served[name].config.search,
+                                 dist_impl="kernel", beam_width=4)
+        qps[name].append(serve(served[name], ds.queries, ds.gt_ids,
+                               s4)[1]["qps"])
+    log("[pq4/bin] QPS in turns, W=4 kernel: " + ", ".join(
+        f"{name} {a:.0f} / {b:.0f}" for name, (a, b) in qps.items()))
+    rep["qps_in_turns"] = qps
+    return counts
+
+
+def probe_depth(idx, ds, served, pq4_quant):
+    """What caps the 8- and 12-byte first passes at 1M (after the launch
+    count): pq4 re-ranked over its whole queue; bin with queue and re-rank
+    twice as deep; and bin's ceiling, the share of the true top-10 that
+    the exact Hamming ranking over all rows puts within its first R = 320
+    (an interval: Hamming ties straddle the R-th place)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.index import KBest
+    from repro_torch.kernels import ops
+    rep = REPORT["pq4_bin"]["depth"] = {}
+    p4 = served["pq4"]
+    deep = KBest(dataclasses.replace(p4.config, quant=dataclasses.replace(
+        pq4_quant, rerank=p4.config.search.L)), device=DEVICE)
+    deep._set_state(idx.db, idx.graph, idx.entry, idx.order)
+    deep.pq, deep.pq_codes = p4.pq, p4.pq_codes
+    s4 = dataclasses.replace(deep.config.search, dist_impl="kernel",
+                             beam_width=4)
+    rep["pq4_rerank_L"] = serve(deep, ds.queries, ds.gt_ids, s4)[1]
+    b = served["bin"]
+    sb = dataclasses.replace(b.config.search, dist_impl="kernel",
+                             beam_width=4)
+    sb = dataclasses.replace(sb, L=2 * sb.L,
+                             rescore_factor=2 * sb.rescore_factor)
+    rep["bin_twice_deep"] = dict(serve(b, ds.queries, ds.gt_ids, sb)[1],
+                                 L=sb.L, rescore_factor=sb.rescore_factor)
+    del deep
+    # per query, how many rows lie at each Hamming distance
+    Q, R, n, chunk = BATCH, 320, b.db.shape[0], 100_000
+    qc = qz.bin_query_codes(b.bin, torch.as_tensor(
+        ds.queries[:Q], dtype=torch.float32, device=b.device))
+    hist = torch.zeros((Q, b.bin.dim + 1), dtype=torch.int64,
+                       device=b.device)
+    for s in range(0, n, chunk):
+        ids = torch.arange(s, min(s + chunk, n), dtype=torch.int32,
+                           device=b.device)[None].expand(Q, -1).contiguous()
+        d = ops.bin_dist(qc, b.bin_codes, ids).long()
+        hist.scatter_add_(1, d, torch.ones_like(d))
+    cum = torch.cumsum(hist, 1)
+    new_of_old = np.empty(n, np.int64)
+    new_of_old[b.order] = np.arange(n)
+    true = torch.as_tensor(new_of_old[ds.gt_ids[:Q, :10]], device=b.device)
+    h = ops.bin_dist(qc, b.bin_codes, true.to(torch.int32)).long()
+    ahead = torch.gather(cum, 1, h) - torch.gather(hist, 1, h)  # closer rows
+    surely = float((torch.gather(cum, 1, h) <= R).float().mean())
+    maybe = float((ahead < R).float().mean())
+    rep["bin_ceiling_R320"] = dict(queries=Q, surely=surely, at_most=maybe,
+                                   true_hamming_mean=float(h.float().mean()))
+    log(f"[depth] pq4 re-ranked over the whole queue of {s4.L}: recall@10 "
+        f"{rep['pq4_rerank_L']['recall']:.4f}; bin at L={sb.L}, "
+        f"rescore_factor={sb.rescore_factor}: recall@10 "
+        f"{rep['bin_twice_deep']['recall']:.4f}, QPS "
+        f"{rep['bin_twice_deep']['qps']:.0f}, dists/q "
+        f"{rep['bin_twice_deep']['dists_per_query']:.1f}; exact Hamming "
+        f"top-{R} over all {n:,} rows holds {surely:.4f}–{maybe:.4f} of the "
+        f"true top-10 ({Q} queries, their mean Hamming distance "
+        f"{float(h.float().mean()):.1f} of {b.bin.dim})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -772,9 +1014,10 @@ def main() -> int:
     timed("anchor", phase_anchor)
     counts, idx, ds, none_rec = timed("main", phase_main)
     qcounts = timed("quant", phase_quant, idx, ds, none_rec)
+    bcounts = timed("pq4 and bin", phase_pq4_bin, idx, ds, none_rec)
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, the TPU kernel it replaces, the path whose launches
-    # count: phase 4's main path or phase 5's quantized paths)
+    # count: phase 4's main path, phase 5's or phase 6's quantized paths)
     sources = {
         "gather_dist": (csrc + "gather_dist.cu",
                         "src/repro/kernels/gather_dist.py:49", counts),
@@ -789,7 +1032,16 @@ def main() -> int:
         "pq_adc": (csrc + "pq_adc.cu", "src/repro/kernels/pq_adc.py:36",
                    qcounts),
         "fused_expand_pq": (csrc + "traverse_step.cu",
-                            "src/repro/kernels/traverse_step.py:222", qcounts)}
+                            "src/repro/kernels/traverse_step.py:222", qcounts),
+        "fused_expand_pq4": (csrc + "traverse_step.cu",
+                             "src/repro/kernels/traverse_step.py:251",
+                             bcounts),
+        "pq4_adc": (csrc + "pq4_scan.cu", "src/repro/kernels/pq4_scan.py:62",
+                    bcounts),
+        "bin_dist": (csrc + "bin_hamming.cu",
+                     "src/repro/kernels/bin_hamming.py:55", bcounts),
+        "fused_expand_bin": (csrc + "traverse_step.cu",
+                             "src/repro/kernels/bin_hamming.py:99", bcounts)}
     kernels = []
     for name, (src, rep, path_counts) in sources.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -2,8 +2,9 @@
 parameters per evaluation dataset (paper Table 3/4).
 
 A copy of the graph presets of the JAX package's `repro/configs/kbest.py`
-(`index_config`, `beam_index_config`, `sq_index_config`, `smoke_config`),
-with the same values, so a preset names the same index in both packages.
+(`index_config`, `beam_index_config`, `sq_index_config`, `bin_index_config`,
+`smoke_config`), with the same values, so a preset names the same index in
+both packages.
 
     from repro_torch.configs import kbest
     cfg = kbest.beam_index_config("deep_like")
@@ -48,6 +49,17 @@ _CONFIGS = {
 _BEAM_W = {"glove_like": 4, "deep_like": 4, "t2i_like": 4, "bigann_like": 4}
 
 
+# bin presets, graph side (the reference's DESIGN.md §14): the 1-bit
+# Hamming first pass needs a wider queue and a deep exact rescore,
+# (L, rescore_factor), to hold recall at codes 32x smaller than f32
+_BIN_CONFIGS = {
+    "glove_like": dict(L=320, rescore_factor=32),
+    "deep_like": dict(L=320, rescore_factor=32),
+    "t2i_like": dict(L=320, rescore_factor=32),
+    "bigann_like": dict(L=384, rescore_factor=32),
+}
+
+
 def index_config(dataset: str) -> IndexConfig:
     return IndexConfig(**_CONFIGS[dataset])
 
@@ -70,6 +82,18 @@ def sq_index_config(dataset: str) -> IndexConfig:
     over unchanged."""
     return dataclasses.replace(index_config(dataset),
                                quant=QuantConfig(kind="sq"))
+
+
+def bin_index_config(dataset: str) -> IndexConfig:
+    """Graph preset with the 1-bit sign codec: Hamming traversal over
+    packed sign words, then the exact rescore of the rescore_factor * k
+    overfetch."""
+    cfg = index_config(dataset)
+    b = _BIN_CONFIGS[dataset]
+    return dataclasses.replace(
+        cfg, quant=QuantConfig(kind="bin"),
+        search=dataclasses.replace(cfg.search, L=b["L"],
+                                   rescore_factor=b["rescore_factor"]))
 
 
 def smoke_config() -> IndexConfig:

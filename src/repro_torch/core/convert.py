@@ -2,10 +2,11 @@
 
 `from_reference_arrays` takes the reference index's numpy state — `db`,
 `graph` and `order`, and for the quantized kinds `pq_codebooks` and
-`pq_codes` or `sq_scale`, `sq_zero` and `sq_codes` (the arrays its
-format-2 save holds) — its `entry`, and its config as `dataclasses.asdict`
-gives it, and returns a port `KBest` holding the same index, so both
-packages search the same graph over the same codes.
+`pq_codes` (pq and pq4), `sq_scale`, `sq_zero` and `sq_codes`, or
+`bin_rot` and `bin_codes` (uint32 words; the port keeps their bits as
+int32) — the arrays its format-2 save holds — its `entry`, and its config
+as `dataclasses.asdict` gives it, and returns a port `KBest` holding the
+same index, so both packages search the same graph over the same codes.
 `KBest.load` of a reference save is the second route to the same state.
 """
 from __future__ import annotations

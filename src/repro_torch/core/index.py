@@ -6,18 +6,18 @@
     index.save(path) / KBest.load(path)
 
 The counterpart of the JAX package's `repro/core/index.py` for
-`index_type="graph"` with `QuantConfig.kind` "none", "sq" or "pq"
-(DESIGN.md §3): kNN graph (brute / NN-descent) -> edge selection ->
-search-based and 2-hop refinement (A1) -> reverse-edge fill ->
-connectivity repair -> MST reordering (A2) -> medoid entry point -> the
-quantizer's training and codes over the reordered rows (A4); search runs
-the batched traversal of core.search with early termination (A3), and a
-quantized first pass is re-ranked with exact distances. Saves are the
+`index_type="graph"` with every `QuantConfig.kind`: "none", "sq", "pq",
+"pq4" and "bin" (DESIGN.md §3, §13, §14): kNN graph (brute /
+NN-descent) -> edge selection -> search-based and 2-hop refinement (A1)
+-> reverse-edge fill -> connectivity repair -> MST reordering (A2) ->
+medoid entry point -> the quantizer's training and codes over the
+reordered rows (A4); search runs the batched traversal of core.search
+with early termination (A3), and a quantized first pass is re-ranked with
+exact distances (bin: its rescore_factor * k overfetch). Saves are the
 reference's format 2, readable by either package.
 
-The IVF family and the kinds "pq4" and "bin" are not ported yet
-(ROADMAP.md, "Modules to port", items 7 and 8) and raise
-NotImplementedError.
+The IVF family is not ported yet (ROADMAP.md, "Modules to port", item 8)
+and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,15 +40,11 @@ from repro_torch.core.distance import normalize
 from repro_torch.core.refine import _chunk_dists, _sync, refine_graph
 from repro_torch.core.types import IndexConfig, SearchConfig
 
-_NOT_PORTED = {
-    "ivf": "the IVF family is not ported yet (ROADMAP.md, Modules to "
-           "port, item 8)",
-    "quant": "the pq4 and bin kinds are not ported yet (ROADMAP.md, "
-             "Modules to port, item 7)",
-}
-PORTED_KINDS = ("none", "sq", "pq")
+_IVF_NOT_PORTED = ("the IVF family is not ported yet (ROADMAP.md, Modules "
+                   "to port, item 8)")
 # the quantizer state a format-2 save holds beside db, graph and order
-QUANT_ARRAYS = ("pq_codebooks", "pq_codes", "sq_scale", "sq_zero", "sq_codes")
+QUANT_ARRAYS = ("pq_codebooks", "pq_codes", "sq_scale", "sq_zero", "sq_codes",
+                "bin_rot", "bin_codes")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,11 +60,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(config: IndexConfig) -> None:
+    """Every quantization kind of the graph family is ported; the IVF
+    family is not yet."""
     if config.index_type == "ivf":
-        raise NotImplementedError(_NOT_PORTED["ivf"])
-    if config.quant.kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"kind={config.quant.kind!r}: {_NOT_PORTED['quant']}")
+        raise NotImplementedError(_IVF_NOT_PORTED)
 
 
 class KBest:
@@ -88,9 +83,11 @@ class KBest:
         self.build_times: Dict[str, float] = {}      # seconds per stage
         # quantization state
         self.pq: Optional[qz.PQState] = None
-        self.pq_codes: Optional[torch.Tensor] = None  # (n, m) u8
+        self.pq_codes: Optional[torch.Tensor] = None  # (n, m) u8; pq4 (n, m/2)
         self.sq: Optional[qz.SQState] = None
         self.sq_codes: Optional[torch.Tensor] = None  # (n, d) u8
+        self.bin: Optional[qz.BinState] = None
+        self.bin_codes: Optional[torch.Tensor] = None  # (n, ceil(d/32)) i32
         self._fns = {}
 
     @property
@@ -180,9 +177,15 @@ class KBest:
         if q.kind == "pq":
             self.pq = qz.pq_train(x, q)
             self.pq_codes = qz.pq_encode(self.pq.codebooks, x)
+        elif q.kind == "pq4":
+            self.pq = qz.pq_train(x, q)                    # (m, 16, ds)
+            self.pq_codes = qz.pq4_encode(self.pq.codebooks, x)
         elif q.kind == "sq":
             self.sq = qz.sq_train(x)
             self.sq_codes = qz.sq_encode(self.sq, x)
+        elif q.kind == "bin":
+            self.bin = qz.bin_train(x, q)
+            self.bin_codes = qz.bin_encode(self.bin, x)
         self._fns = {}
 
     def _set_state(self, db, graph, entry, order) -> None:
@@ -239,18 +242,18 @@ class KBest:
                 n_total=n, valid_mask=valid_mask,
                 expand_fn=self._get_expand_fn("full", scfg))
         else:
-            # quantized first pass over the whole widened queue (PQ walks
-            # per-query tables, SQ the queries), then the exact re-rank
-            operand = (qz.pq_query_tables(self.pq.codebooks, q, self._metric)
-                       if kind == "pq" else q)
-            wide = _widen(scfg)
+            # quantized first pass over the whole widened queue, then the
+            # exact re-rank (bin: of its rescore_factor * k overfetch)
+            wide = _widen_bin(scfg) if kind == "bin" else _widen(scfg)
             _, ids, stats = search_mod.search(
-                self.graph, operand, entry_ids,
+                self.graph, self._operand(q), entry_ids,
                 dist_fn=self._get_dist_fn(kind, scfg.dist_impl), cfg=wide,
                 n_total=n, valid_mask=valid_mask,
                 expand_fn=self._get_expand_fn(kind, wide))
-            dists, ids, n_exact = self._rerank(q, ids, scfg.k,
-                                               self.config.quant.rerank,
+            rerank = self.config.quant.rerank
+            if kind == "bin" and rerank == 0:
+                rerank = scfg.rescore_factor * scfg.k
+            dists, ids, n_exact = self._rerank(q, ids, scfg.k, rerank,
                                                scfg.dist_impl)
             # n_dist counts the exact re-rank distances too, as the
             # reference does for every quantized family
@@ -262,6 +265,19 @@ class KBest:
                               torch.full_like(ids, -1))
         return dists, ids, stats
 
+    def _operand(self, q: torch.Tensor) -> torch.Tensor:
+        """What the quantized first pass walks with: per-query tables for
+        PQ and PQ4, sign codes for bin, the queries themselves for SQ."""
+        quant = self.config.quant
+        if quant.kind == "pq":
+            return qz.pq_query_tables(self.pq.codebooks, q, self._metric)
+        if quant.kind == "pq4":
+            return qz.pq4_query_tables(self.pq.codebooks, q, self._metric,
+                                       lut_u8=quant.pq4_lut_u8)
+        if quant.kind == "bin":
+            return qz.bin_query_codes(self.bin, q)
+        return q
+
     def _entry_ids(self, n_entries: int, n: int) -> torch.Tensor:
         """Medoid + evenly-spaced deterministic seeds; all distinct."""
         e = max(1, min(n_entries, n))
@@ -272,8 +288,8 @@ class KBest:
         return torch.as_tensor(ids, dtype=torch.int32)
 
     def _get_dist_fn(self, kind: str, impl: str):
-        """The distance over `kind` ("full", "pq" or "sq"): the first
-        pass's, and "full" for the exact re-rank."""
+        """The distance over `kind` ("full" or a quantized kind): the
+        first pass's, and "full" for the exact re-rank."""
         key = (kind, impl)
         if key not in self._fns:
             metric = self._metric
@@ -281,8 +297,12 @@ class KBest:
                 fn = search_mod.make_dist_fn(self.db, metric, impl)
             elif kind == "pq":
                 fn = qz.pq_make_dist_fn(self.pq_codes, self.pq.m, impl)
+            elif kind == "pq4":
+                fn = qz.pq4_make_dist_fn(self.pq_codes, self.pq.m, impl)
             elif kind == "sq":
                 fn = qz.sq_make_dist_fn(self.sq_codes, self.sq, metric, impl)
+            elif kind == "bin":
+                fn = qz.bin_make_dist_fn(self.bin_codes, impl)
             else:
                 raise ValueError(kind)
             self._fns[key] = fn
@@ -302,13 +322,14 @@ class KBest:
             metric = self._metric
             if kind == "full":
                 fn = search_mod.make_expand_fn(self.db, metric, L=L, n_beam=W)
-            elif kind == "pq":
+            elif kind in ("pq", "pq4"):
                 m, K, codes = self.pq.m, self.pq.ksub, self.pq_codes
+                fe = kops.fused_expand_pq4 if kind == "pq4" else \
+                    kops.fused_expand_pq
 
                 def fn(tables, nbr_ids):
-                    return kops.fused_expand_pq(
-                        tables.reshape(tables.shape[0], m, K), codes,
-                        nbr_ids, L=L, n_beam=W)
+                    return fe(tables.reshape(tables.shape[0], m, K), codes,
+                              nbr_ids, L=L, n_beam=W)
             elif kind == "sq":
                 codes, sq = self.sq_codes, self.sq
 
@@ -316,6 +337,12 @@ class KBest:
                     return kops.fused_expand_sq(
                         queries, codes, sq.scale, sq.zero, nbr_ids,
                         metric=metric, L=L, n_beam=W)
+            elif kind == "bin":
+                codes = self.bin_codes
+
+                def fn(qcodes, nbr_ids):
+                    return kops.fused_expand_bin(qcodes, codes, nbr_ids, L=L,
+                                                 n_beam=W)
             else:
                 raise ValueError(kind)
             self._fns[key] = fn
@@ -355,6 +382,10 @@ class KBest:
             arrs["sq_scale"] = self.sq.scale.cpu().numpy()
             arrs["sq_zero"] = self.sq.zero.cpu().numpy()
             arrs["sq_codes"] = self.sq_codes.cpu().numpy()
+        if self.bin is not None:
+            arrs["bin_rot"] = self.bin.rot.cpu().numpy()
+            # the reference's dtype: the same bits as uint32 words
+            arrs["bin_codes"] = self.bin_codes.cpu().numpy().view(np.uint32)
         sums = persist.save_arrays(_npz_path(p), arrs, f"{_label}.arrays")
         meta = {"entry": self.entry,
                 "config": dataclasses.asdict(self.config),
@@ -406,6 +437,11 @@ def _from_arrays(arrays: dict, entry: int, config: IndexConfig,
         idx.sq = qz.SQState(put("sq_scale", np.float32),
                             put("sq_zero", np.float32))
         idx.sq_codes = put("sq_codes", np.uint8)
+    if "bin_rot" in arrays:
+        idx.bin = qz.BinState(put("bin_rot", np.float32))
+        idx.bin_codes = torch.as_tensor(
+            np.array(arrays["bin_codes"], dtype=np.uint32).view(np.int32),
+            device=idx.device)
     return idx
 
 
@@ -447,6 +483,15 @@ def _widen(scfg: SearchConfig) -> SearchConfig:
     """Quantized first passes return their whole (wide) queue, so the
     exact re-rank has at least 4k candidates to work with."""
     want = max(scfg.L, 4 * scfg.k)
+    return dataclasses.replace(scfg, L=want, k=want)
+
+
+def _widen_bin(scfg: SearchConfig) -> SearchConfig:
+    """The bin first pass: the Hamming queue must hold the
+    rescore_factor * k overfetch that the exact re-rank picks from. While
+    rescore_factor * k <= L the traversal is the same for every factor
+    and a deeper factor re-ranks a longer prefix of one ranking."""
+    want = max(scfg.L, scfg.rescore_factor * scfg.k)
     return dataclasses.replace(scfg, L=want, k=want)
 
 

@@ -1,7 +1,8 @@
-"""Vector quantization (paper §3.2, A4): the `pq` and `sq` codecs.
+"""Vector quantization (paper §3.2, A4): the `pq`, `pq4`, `sq` and `bin`
+codecs.
 
-The counterpart of the `pq` (8-bit) and `sq` half of the JAX package's
-`repro/core/quantize.py`, behind the same interface:
+The counterpart of the JAX package's `repro/core/quantize.py`, behind the
+same interface:
 
   train(db)          -> state (codebooks / scales)
   encode(db)         -> codes
@@ -11,8 +12,12 @@ The counterpart of the `pq` (8-bit) and `sq` half of the JAX package's
 
 PQ distance is ADC: per query an (m, 256) lookup table of subspace
 distances, so a database code (m,) costs m table reads (the `pq_adc`
-kernel on the card). SQ is a per-dimension affine u8 code dequantized on
-the fly (the `sq_gather_dist` kernel).
+kernel on the card). PQ4 is the same with 16 centroids a subspace, two
+codes packed per byte and an (m, 16) table (`pq4_adc`), optionally
+requantized to u8 steps. SQ is a per-dimension affine u8 code dequantized
+on the fly (the `sq_gather_dist` kernel). BIN keeps one sign bit per
+randomly rotated dimension, 32 to a word, and ranks by Hamming distance
+(`bin_dist`).
 
 Differences from the reference, none of them in what is computed:
   * k-means takes its initial indices as an input. The reference draws
@@ -23,10 +28,15 @@ Differences from the reference, none of them in what is computed:
     a scatter: CUDA's float `index_add_` uses atomics, whose order (and so
     whose rounding) changes from run to run, and two trainings must give
     identical codebooks.
-  * `pq_encode` works in row chunks; the reference's (n, m, K) distance
-    block is 16 GB at n = 1M, m = 16.
-The kinds `pq4` and `bin` are not ported yet (ROADMAP.md); their registry
-entries stay, and KBest refuses them.
+  * `pq_encode` and `bin_encode` work in row chunks; the reference's
+    (n, m, K) distance block is 16 GB at n = 1M, m = 16.
+  * The bin rotation is the QR of a Gaussian that the reference draws
+    with `jax.random.normal`; here it comes from a seeded CPU
+    `torch.Generator`, and `rotation_from_gaussian` takes any draw, so
+    parity tests pass in the reference's.
+  * Bin codes are `torch.int32` tensors holding the bits of the
+    reference's uint32 words (torch has no uint32 shifts on the CPU);
+    `KBest.save` writes them as uint32.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.types import QuantConfig
+from repro_torch.kernels import ref as kref
 
 _ROWS = 65536          # rows per chunk of the (rows, k) blocks below
 
@@ -172,6 +183,61 @@ def pq_make_dist_fn(codes: torch.Tensor, m: int, impl: str = "ref"):
 
 
 # --------------------------------------------------------------------------
+# 4-bit fast-scan product quantization (K = 16)
+# --------------------------------------------------------------------------
+def pq4_pack(codes: torch.Tensor) -> torch.Tensor:
+    """(n, m) 4-bit codes (values < 16) -> (n, m//2) uint8, two per byte:
+    byte j holds subspace 2j in the low nibble, 2j+1 in the high one."""
+    assert codes.shape[1] % 2 == 0, codes.shape
+    c = codes.to(torch.uint8)
+    return c[:, 0::2] | (c[:, 1::2] << 4)
+
+
+# (..., m//2) packed bytes -> (..., m) int64 codes in [0, 16), the inverse
+# of pq4_pack: the kernels' plain versions unpack with the same function
+pq4_unpack = kref._unpack_nibbles_ref
+
+
+def pq4_encode(books: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """(n, d) -> (n, m//2) uint8 nibble-packed codes (books (m, 16, ds))."""
+    assert books.shape[1] == 16, tuple(books.shape)
+    return pq4_pack(pq_encode(books, db))
+
+
+def pq4_requant_lut(lut: torch.Tensor) -> torch.Tensor:
+    """Fast-scan LUT requantization, per query: each (Q, T) row is mapped
+    to u8 steps of (max - min) / 255 and back, so every consumer sees the
+    distances a u8 table walk gives (the ADC sum is off by at most
+    m * step / 2). torch.round rounds half to even, as jnp.round does."""
+    lo = torch.amin(lut, dim=1, keepdim=True)
+    hi = torch.amax(lut, dim=1, keepdim=True)
+    step = torch.clamp(hi - lo, min=1e-12) / 255.0
+    q = torch.clamp(torch.round((lut - lo) / step), 0, 255)
+    return q * step + lo
+
+
+def pq4_query_tables(books: torch.Tensor, queries: torch.Tensor,
+                     metric: str, lut_u8: bool = False) -> torch.Tensor:
+    """Per-query (m, 16) ADC tables flattened to (Q, m*16), as
+    pq_query_tables; with lut_u8 requantized by pq4_requant_lut."""
+    lut = pq_query_tables(books, queries, metric)
+    return pq4_requant_lut(lut) if lut_u8 else lut
+
+
+def pq4_make_dist_fn(packed: torch.Tensor, m: int, impl: str = "ref"):
+    """DistFn over nibble-packed PQ4 codes; `tables` is (Q, m*16).
+    impl="kernel" goes to the pq4_adc kernel (its plain version on CPU),
+    impl="ref" to the plain version on any device."""
+    from repro_torch.kernels import ops as kops
+
+    adc = kops.pq4_adc if impl == "kernel" else kref.pq4_adc_ref
+
+    def fn(tables, nbr_ids):
+        return adc(tables.reshape(tables.shape[0], m, 16), packed, nbr_ids)
+    return fn
+
+
+# --------------------------------------------------------------------------
 # Scalar quantization (int8 per-dimension affine)
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -217,6 +283,101 @@ def sq_make_dist_fn(codes: torch.Tensor, state: SQState, metric: str,
         c = codes[torch.clamp(nbr_ids, min=0).long()].float()
         vecs = c * state.scale[None, None, :] + state.zero[None, None, :]
         return batched_one_to_many(queries, vecs, metric)
+    return fn
+
+
+# --------------------------------------------------------------------------
+# 1-bit binary quantization (random-rotation sign codec)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class BinState:
+    rot: torch.Tensor    # (d, d) f32 orthonormal rotation
+
+    @property
+    def dim(self) -> int:
+        return self.rot.shape[0]
+
+    @property
+    def n_words(self) -> int:
+        return -(-self.dim // 32)
+
+
+def rotation_from_gaussian(g: torch.Tensor) -> torch.Tensor:
+    """Orthonormal (d, d) rotation from a (d, d) Gaussian draw: its QR
+    factor Q with the columns' signs fixed by R's diagonal, so the result
+    is a function of the draw alone."""
+    q, r = torch.linalg.qr(g)
+    s = torch.sign(torch.diagonal(r))
+    return q * torch.where(s == 0, torch.ones_like(s), s)[None, :]
+
+
+def random_rotation(d: int, seed: int) -> torch.Tensor:
+    """(d, d) rotation from a CPU generator seeded `seed`, so every device
+    draws the same."""
+    g = torch.randn((d, d), generator=torch.Generator().manual_seed(seed),
+                    dtype=torch.float32)
+    return rotation_from_gaussian(g)
+
+
+def pack_signs(bits: torch.Tensor) -> torch.Tensor:
+    """(n, d) sign bits ({0, 1}, any integer or bool type) -> (n, ceil(d/32))
+    int32 words: bit b of word w holds dimension 32w + b, and tail bits of
+    the last word are zero."""
+    n, d = bits.shape
+    nw = -(-d // 32)
+    b = torch.nn.functional.pad(bits.long(), (0, nw * 32 - d))
+    shifts = torch.arange(32, device=bits.device)
+    words = torch.sum(b.reshape(n, nw, 32) << shifts, dim=-1)  # [0, 2^32)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
+
+
+def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """(n, ceil(d/32)) int32 words -> (n, d) uint8 sign bits (the inverse
+    of pack_signs)."""
+    n, nw = packed.shape
+    assert nw * 32 >= d, (nw, d)
+    shifts = torch.arange(32, device=packed.device)
+    bits = (packed.long()[..., None] >> shifts) & 1
+    return bits.reshape(n, nw * 32)[:, :d].to(torch.uint8)
+
+
+def bin_train(db: torch.Tensor, cfg: QuantConfig,
+              rot: Optional[torch.Tensor] = None) -> BinState:
+    """Training only draws the rotation (data-independent) from cfg.seed;
+    `rot` (d, d), when given, is the rotation instead."""
+    if rot is None:
+        rot = random_rotation(db.shape[1], cfg.seed)
+    return BinState(rot=torch.as_tensor(rot, dtype=torch.float32,
+                                        device=db.device).contiguous())
+
+
+def bin_encode(state: BinState, x: torch.Tensor) -> torch.Tensor:
+    """(n, d) f32 -> (n, ceil(d/32)) int32 packed signs of x @ rot."""
+    out = torch.empty((x.shape[0], state.n_words), dtype=torch.int32,
+                      device=x.device)
+    for s in range(0, x.shape[0], _ROWS):
+        out[s:s + _ROWS] = pack_signs(x[s:s + _ROWS] @ state.rot >= 0)
+    return out
+
+
+def bin_query_codes(state: BinState, queries: torch.Tensor) -> torch.Tensor:
+    """The search operand: the queries' own sign codes, made as the
+    database's (symmetric Hamming)."""
+    return bin_encode(state, queries)
+
+
+def bin_make_dist_fn(codes: torch.Tensor, impl: str = "ref"):
+    """DistFn over packed sign codes; `qcodes` (the search "queries") is
+    (Q, nw) int32. Distances are exact Hamming counts in f32. impl="kernel"
+    goes to the bin_dist kernel (its plain version on CPU), impl="ref" to
+    the plain version on any device."""
+    from repro_torch.kernels import ops as kops
+
+    dist = kops.bin_dist if impl == "kernel" else kref.bin_dist_ref
+
+    def fn(qcodes, nbr_ids):
+        return dist(qcodes, codes, nbr_ids)
     return fn
 
 

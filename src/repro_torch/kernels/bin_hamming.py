@@ -1,0 +1,54 @@
+"""Wrapper of the `bin_dist` CUDA kernel (csrc/bin_hamming.cu).
+
+The counterpart of the JAX package's Pallas `bin_dist`
+(src/repro/kernels/bin_hamming.py): (Q, nw) packed query signs, (n, nw)
+packed database signs, (Q, B) int32 ids -> (Q, B) f32 Hamming distances,
++inf where an id is < 0. The sign words are `torch.int32` tensors holding
+the bits of the reference's uint32 words. `launches` counts the kernel
+launches made through this wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gather_dist import check, raise_on, stream_ptr
+
+launches = {"bin_dist": 0}
+# the C launcher's signature: pointers, ints, stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def check_signs(qcodes: torch.Tensor, codes: torch.Tensor,
+                ids: torch.Tensor) -> None:
+    """The bin kernels' common checks: qcodes (Q, nw) and codes (n, nw)
+    int32 words, ids (Q, C) int32, every tensor on one device."""
+    check(qcodes, "qcodes", torch.int32, 2)
+    check(codes, "codes", torch.int32, 2)
+    check(ids, "ids", torch.int32, 2)
+    if codes.shape[1] != qcodes.shape[1] or ids.shape[0] != qcodes.shape[0]:
+        raise ValueError(f"shape mismatch: qcodes {tuple(qcodes.shape)}, "
+                         f"codes {tuple(codes.shape)}, ids {tuple(ids.shape)}")
+    if not (qcodes.device == codes.device == ids.device):
+        raise ValueError("all operands must lie on one device")
+
+
+def bin_dist(qcodes: torch.Tensor, codes: torch.Tensor,
+             ids: torch.Tensor) -> torch.Tensor:
+    check_signs(qcodes, codes, ids)
+    Q, nw = qcodes.shape
+    B = ids.shape[1]
+    out = torch.empty((Q, B), dtype=torch.float32, device=qcodes.device)
+    if Q == 0 or B == 0:
+        return out
+    fn = _build.function("bin_hamming", "bin_dist_u32", _ARGTYPES)
+    err = fn(ctypes.c_void_p(qcodes.data_ptr()),
+             ctypes.c_void_p(codes.data_ptr()),
+             ctypes.c_void_p(ids.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+             ctypes.c_int(Q), ctypes.c_int(B), ctypes.c_int(nw),
+             stream_ptr(qcodes))
+    raise_on(err, "bin_dist")
+    launches["bin_dist"] += 1
+    return out

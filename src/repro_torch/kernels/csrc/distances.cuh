@@ -8,10 +8,15 @@
 //                  code * scale + zero                   (sq_gather_dist)
 //   thread_adc     one thread, one m-byte PQ code:
 //                  sum_j lut[j * K + code[j]]            (pq_adc)
+//   thread_adc4    one thread, one m/2-byte nibble-packed PQ4 code:
+//                  sum_j lut[j * 16 + code[j]]           (pq4_adc)
+//   thread_hamming one thread, one nw-word sign code:
+//                  sum_w popc(q[w] ^ code[w])            (bin_dist)
 //
 // metric 0 is l2 (sum of squared differences), 1 the negated inner
-// product. The query row, scale, zero and the LUT are read from shared
-// memory, database rows and codes from device memory through the
+// product. The query row, scale, zero, the LUT and the query's sign words
+// are read from shared memory (bin_dist reads its query words from device
+// memory), database rows and codes from device memory through the
 // read-only path (__ldg).
 #pragma once
 #include <cuda_runtime.h>
@@ -125,6 +130,50 @@ __device__ __forceinline__ float thread_adc(
     for (int j = 0; j < m; ++j) acc += lut[j * K + __ldg(row + j)];
   }
   return acc;
+}
+
+// One thread, one nibble-packed code row of m/2 bytes (id >= 0): byte b
+// holds subspace 2b in its low nibble and 2b+1 in its high nibble; summed
+// over j = 0 .. m-1 in order, lut being the (m, 16) table. vec8: m % 16
+// == 0 and 8-byte aligned code rows (one 8-byte load per 16 subspaces).
+__device__ __forceinline__ float thread_adc4(
+    const unsigned char* __restrict__ codes, int id,
+    const float* __restrict__ lut, int m, bool vec8) {
+  const int mh = m >> 1;
+  const unsigned char* row = codes + (size_t)id * mh;
+  float acc = 0.f;
+  if (vec8) {
+    for (int b0 = 0; b0 < mh; b0 += 8) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(row + b0));
+      const unsigned int words[2] = {w.x, w.y};
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const unsigned int c = (words[t >> 2] >> ((t & 3) * 8)) & 0xffu;
+        const int j = 2 * (b0 + t);
+        acc += lut[j * 16 + (c & 15u)];
+        acc += lut[(j + 1) * 16 + (c >> 4)];
+      }
+    }
+  } else {
+    for (int b = 0; b < mh; ++b) {
+      const unsigned int c = __ldg(row + b);
+      acc += lut[2 * b * 16 + (c & 15u)];
+      acc += lut[(2 * b + 1) * 16 + (c >> 4)];
+    }
+  }
+  return acc;
+}
+
+// One thread, one packed sign row of nw 32-bit words (id >= 0) against the
+// query's words qw: the Hamming distance, counted exactly in an int and
+// converted once, so equal counts give equal floats.
+__device__ __forceinline__ float thread_hamming(
+    const unsigned int* __restrict__ codes, int id,
+    const unsigned int* __restrict__ qw, int nw) {
+  const unsigned int* row = codes + (size_t)id * nw;
+  int acc = 0;
+  for (int w = 0; w < nw; ++w) acc += __popc(qw[w] ^ __ldg(row + w));
+  return static_cast<float>(acc);
 }
 
 }  // namespace kbest

@@ -1,33 +1,40 @@
-// fused_expand, fused_expand_sq, fused_expand_pq: one beam-search step's
-// candidate block, gathered, scored, sorted and cut to the T = min(L, C)
-// best, in one kernel, over f32 rows, SQ codes or PQ codes.
+// fused_expand, fused_expand_sq, fused_expand_pq, fused_expand_pq4,
+// fused_expand_bin: one beam-search step's candidate block, gathered,
+// scored, sorted and cut to the T = min(L, C) best, in one kernel, over
+// f32 rows, SQ codes, PQ codes, nibble-packed PQ4 codes or sign codes.
 //
-// Replaces the Pallas kernels `fused_expand`, `fused_expand_sq` and
-// `fused_expand_pq` of the JAX package (src/repro/kernels/traverse_step.py,
-// shared epilogue `_finalize`). For each query, over the C = W*M flat
-// candidate ids (expansion w owns positions [w*M, (w+1)*M)):
-//   d[j]      = the candidate's distance (gather_dist, sq_gather_dist or
-//               pq_adc arithmetic), +inf where ids[j] < 0;
+// Replaces the Pallas kernels `fused_expand`, `fused_expand_sq`,
+// `fused_expand_pq` and `fused_expand_pq4` of the JAX package
+// (src/repro/kernels/traverse_step.py, shared epilogue `_finalize`) and
+// `fused_expand_bin` (src/repro/kernels/bin_hamming.py). For each query,
+// over the C = W*M flat candidate ids (expansion w owns positions
+// [w*M, (w+1)*M)):
+//   d[j]      = the candidate's distance (gather_dist, sq_gather_dist,
+//               pq_adc, pq4_adc or bin_dist arithmetic), +inf where
+//               ids[j] < 0;
 //   (sd, si)  = stable ascending sort of (d, ids), first T kept, ids -1
 //               where sd is not finite;
 //   bests[w]  = min over expansion w's M entries of the unsorted d;
 //   ties[w]   = number of entries of expansions w' < w whose d == bests[w].
 //
 // Bound on this card: bytes. The gathered rows (Q*C*d*4 bytes for f32,
-// Q*C*d for SQ, Q*C*m for PQ) and, for PQ, the query's (m, K) f32 LUT
-// (16 KB a query at m=16, K=256: most of the PQ step's bytes); the sort is
-// C*log^2(C) compare-exchanges in shared memory per query.
+// Q*C*d for SQ, Q*C*m for PQ, Q*C*m/2 for PQ4, Q*C*nw*4 for bin) and, for
+// PQ, the query's (m, K) f32 LUT (16 KB a query at m=16, K=256: most of
+// the PQ step's bytes; 1 KB for PQ4); the sort is C*log^2(C)
+// compare-exchanges in shared memory per query.
 // Design: one block per query. A distance functor stages what the query
-// needs in shared memory (its row; its row, scale and zero; its LUT) and
-// scores the C candidates into shared memory: one warp a candidate for
-// f32 and SQ, one thread a candidate for PQ (distances.cuh). One epilogue
-// template, the same for every functor, then reads the minima and tie
-// counts from the unsorted block and runs a bitonic sort over (distance,
-// original position) pairs padded to a power of two P >= C with (+inf,
-// position >= C). The position key makes every key distinct, so the
-// network's result is exactly the stable sort of
-// jax.lax.sort(is_stable=True). Shared memory: P*8 + C*4 bytes plus the
-// functor's staging (d*4, d*12 or m*K*4 bytes); C may be up to 4096.
+// needs in shared memory (its row; its row, scale and zero; its LUT; its
+// sign words) and scores the C candidates into shared memory: one warp a
+// candidate for f32 and SQ, one thread a candidate for PQ, PQ4 and bin
+// (distances.cuh). One epilogue template, the same for every functor, then
+// reads the minima and tie counts from the unsorted block and runs a
+// bitonic sort over (distance, original position) pairs padded to a power
+// of two P >= C with (+inf, position >= C). The position key makes every
+// key distinct, so the network's result is exactly the stable sort of
+// jax.lax.sort(is_stable=True), also for Hamming blocks, which are mostly
+// exact ties (bin writes one float per integer count). Shared memory:
+// P*8 + C*4 bytes plus the functor's staging (d*4, d*12, m*K*4 or nw*4
+// bytes); C may be up to 4096.
 #include "distances.cuh"
 
 namespace {
@@ -104,6 +111,44 @@ struct PqDist {
     for (int j = threadIdx.x; j < C; j += blockDim.x) {
       const int id = idrow[j];
       out[j] = id >= 0 ? kbest::thread_adc(codes, id, ex, m, K, vec16 != 0)
+                       : CUDART_INF_F;
+    }
+  }
+};
+
+struct Pq4Dist {
+  const float* lut;            // (Q, m, 16)
+  const unsigned char* codes;  // (n, m/2), two codes a byte
+  int m, vec8;
+  __device__ void stage(float* ex, int qi) const {
+    const float* lrow = lut + (size_t)qi * m * 16;
+    for (int k = threadIdx.x; k < m * 16; k += blockDim.x) ex[k] = lrow[k];
+  }
+  __device__ void score(const float* ex, const int* idrow, int C,
+                        float* out) const {
+    for (int j = threadIdx.x; j < C; j += blockDim.x) {
+      const int id = idrow[j];
+      out[j] = id >= 0 ? kbest::thread_adc4(codes, id, ex, m, vec8 != 0)
+                       : CUDART_INF_F;
+    }
+  }
+};
+
+struct BinDist {
+  const unsigned int* q;       // (Q, nw)
+  const unsigned int* codes;   // (n, nw)
+  int nw;
+  __device__ void stage(float* ex, int qi) const {
+    unsigned int* qs = reinterpret_cast<unsigned int*>(ex);
+    for (int k = threadIdx.x; k < nw; k += blockDim.x)
+      qs[k] = q[(size_t)qi * nw + k];
+  }
+  __device__ void score(const float* ex, const int* idrow, int C,
+                        float* out) const {
+    const unsigned int* qs = reinterpret_cast<const unsigned int*>(ex);
+    for (int j = threadIdx.x; j < C; j += blockDim.x) {
+      const int id = idrow[j];
+      out[j] = id >= 0 ? kbest::thread_hamming(codes, id, qs, nw)
                        : CUDART_INF_F;
     }
   }
@@ -234,4 +279,26 @@ extern "C" int fused_expand_pq_u8(const void* lut, const void* codes,
               static_cast<const unsigned char*>(codes), m, K, vec16};
   return launch(dist, (size_t)m * K, ids, out_d, out_i, out_best, out_ties, Q,
                 C, T, W, stream);
+}
+
+extern "C" int fused_expand_pq4_u8(const void* lut, const void* codes,
+                                   const void* ids, void* out_d, void* out_i,
+                                   void* out_best, void* out_ties, int Q,
+                                   int C, int T, int W, int m, void* stream) {
+  int vec8 = (m % 16 == 0) && ((reinterpret_cast<size_t>(codes) & 7) == 0);
+  Pq4Dist dist{static_cast<const float*>(lut),
+               static_cast<const unsigned char*>(codes), m, vec8};
+  return launch(dist, (size_t)m * 16, ids, out_d, out_i, out_best, out_ties,
+                Q, C, T, W, stream);
+}
+
+extern "C" int fused_expand_bin_u32(const void* qcodes, const void* codes,
+                                    const void* ids, void* out_d, void* out_i,
+                                    void* out_best, void* out_ties, int Q,
+                                    int C, int T, int W, int nw,
+                                    void* stream) {
+  BinDist dist{static_cast<const unsigned int*>(qcodes),
+               static_cast<const unsigned int*>(codes), nw};
+  return launch(dist, (size_t)nw, ids, out_d, out_i, out_best, out_ties, Q, C,
+                T, W, stream);
 }

@@ -17,13 +17,15 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import batch_dist as _bd
+from repro_torch.kernels import bin_hamming as _bh
 from repro_torch.kernels import gather_dist as _gd
+from repro_torch.kernels import pq4_scan as _p4
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import ref
 from repro_torch.kernels import traverse_step as _ts
 
 # each wrapper module's `launches` maps its kernels' names to their counts
-_WRAPPERS = (_gd, _ts, _bd, _pq)
+_WRAPPERS = (_gd, _ts, _bd, _pq, _p4, _bh)
 
 
 def _kernel_metric(metric: str) -> str:
@@ -94,6 +96,40 @@ def fused_expand_pq(lut: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor,
     if lut.is_cuda:
         return _ts.fused_expand_pq(lut, codes, ids, L, n_beam)
     return ref.fused_expand_pq_ref(lut, codes, ids, L, n_beam)
+
+
+def pq4_adc(lut: torch.Tensor, packed: torch.Tensor,
+            ids: torch.Tensor) -> torch.Tensor:
+    """(Q, m, 16) tables, (n, m/2) u8 nibble-packed codes, (Q, B) int32 ->
+    (Q, B) ADC distances; -1 ids -> +inf."""
+    if lut.is_cuda:
+        return _p4.pq4_adc(lut, packed, ids)
+    return ref.pq4_adc_ref(lut, packed, ids)
+
+
+def fused_expand_pq4(lut: torch.Tensor, packed: torch.Tensor,
+                     ids: torch.Tensor, *, L: int, n_beam: int = 1):
+    """PQ4 twin of fused_expand over (n, m/2) nibble-packed codes."""
+    if lut.is_cuda:
+        return _ts.fused_expand_pq4(lut, packed, ids, L, n_beam)
+    return ref.fused_expand_pq4_ref(lut, packed, ids, L, n_beam)
+
+
+def bin_dist(qcodes: torch.Tensor, codes: torch.Tensor,
+             ids: torch.Tensor) -> torch.Tensor:
+    """(Q, nw) int32 query sign words, (n, nw) int32 code words, (Q, B)
+    int32 -> (Q, B) exact Hamming distances in f32; -1 ids -> +inf."""
+    if qcodes.is_cuda:
+        return _bh.bin_dist(qcodes, codes, ids)
+    return ref.bin_dist_ref(qcodes, codes, ids)
+
+
+def fused_expand_bin(qcodes: torch.Tensor, codes: torch.Tensor,
+                     ids: torch.Tensor, *, L: int, n_beam: int = 1):
+    """Hamming twin of fused_expand over (n, nw) int32 sign words."""
+    if qcodes.is_cuda:
+        return _ts.fused_expand_bin(qcodes, codes, ids, L, n_beam)
+    return ref.fused_expand_bin_ref(qcodes, codes, ids, L, n_beam)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -158,7 +158,8 @@ def test_sorted_block_epilogue_matches_reference():
 
 
 KERNELS = ("gather_dist", "fused_expand", "batch_dist", "sq_gather_dist",
-           "fused_expand_sq", "pq_adc", "fused_expand_pq")
+           "fused_expand_sq", "pq_adc", "fused_expand_pq", "pq4_adc",
+           "fused_expand_pq4", "bin_dist", "fused_expand_bin")
 
 
 def _quant_case(seed, Q, n, d, m):
@@ -169,15 +170,19 @@ def _quant_case(seed, Q, n, d, m):
           (-r.random(d)).astype(np.float32))
     pq = (r.normal(size=(Q, m, 256)).astype(np.float32),
           r.integers(0, 256, size=(n, m)).astype(np.uint8))
-    return sq, pq
+    pq4 = (r.normal(size=(Q, m, 16)).astype(np.float32),
+           r.integers(0, 256, size=(n, m // 2)).astype(np.uint8))
+    signs = (r.integers(-2 ** 31, 2 ** 31, size=(Q, 3)).astype(np.int32),
+             r.integers(-2 ** 31, 2 ** 31, size=(n, 3)).astype(np.int32))
+    return sq, pq, pq4, signs
 
 
 def test_cpu_wrappers_launch_nothing():
     tops.reset_launch_counts()
     q, db, ids = _case(1, 3, 8, 40, 96)
-    (codes, scale, zero), (lut, pcodes) = _quant_case(1, 3, 40, 96, 16)
-    q, db, ids, codes, scale, zero, lut, pcodes = (
-        _t(a) for a in (q, db, ids, codes, scale, zero, lut, pcodes))
+    (codes, scale, zero), (lut, pcodes), (lut4, packed), (qw, words) = (
+        tuple(_t(a) for a in part) for part in _quant_case(1, 3, 40, 96, 16))
+    q, db, ids = _t(q), _t(db), _t(ids)
     tops.gather_dist(q, db, ids)
     tops.fused_expand(q, db, ids, L=4, n_beam=2)
     tops.batch_dist(q, db)
@@ -185,6 +190,10 @@ def test_cpu_wrappers_launch_nothing():
     tops.fused_expand_sq(q, codes, scale, zero, ids, L=4, n_beam=2)
     tops.pq_adc(lut, pcodes, ids)
     tops.fused_expand_pq(lut, pcodes, ids, L=4, n_beam=2)
+    tops.pq4_adc(lut4, packed, ids)
+    tops.fused_expand_pq4(lut4, packed, ids, L=4, n_beam=2)
+    tops.bin_dist(qw, words, ids)
+    tops.fused_expand_bin(qw, words, ids, L=4, n_beam=2)
     assert tops.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
@@ -218,19 +227,27 @@ def test_cuda_kernels_match_plain(cuda, metric):
     assert torch.equal(out[1], exp[1]) and torch.equal(out[3], exp[3])
     _close(tops.batch_dist(q, db, metric=metric),
            tref.batch_dist_ref(q, db, metric))
-    (codes, scale, zero), (lut, pcodes) = (
+    (codes, scale, zero), (lut, pcodes), (lut4, packed), (qw, words) = (
         tuple(torch.as_tensor(a, device=cuda) for a in part)
         for part in _quant_case(4, 64, 5000, 96, 16))
     _close(tops.sq_gather_dist(q, codes, scale, zero, ids, metric=metric),
            tref.sq_gather_dist_ref(q, codes, scale, zero, ids, metric))
     _close(tops.pq_adc(lut, pcodes, ids), tref.pq_adc_ref(lut, pcodes, ids))
+    _close(tops.pq4_adc(lut4, packed, ids),
+           tref.pq4_adc_ref(lut4, packed, ids))
+    assert torch.equal(tops.bin_dist(qw, words, ids),
+                       tref.bin_dist_ref(qw, words, ids))
     for out, exp in (
             (tops.fused_expand_sq(q, codes, scale, zero, ids, metric=metric,
                                   L=64, n_beam=4),
              tref.fused_expand_sq_ref(q, codes, scale, zero, ids, metric, 64,
                                       4)),
             (tops.fused_expand_pq(lut, pcodes, ids, L=64, n_beam=4),
-             tref.fused_expand_pq_ref(lut, pcodes, ids, 64, 4))):
+             tref.fused_expand_pq_ref(lut, pcodes, ids, 64, 4)),
+            (tops.fused_expand_pq4(lut4, packed, ids, L=64, n_beam=4),
+             tref.fused_expand_pq4_ref(lut4, packed, ids, 64, 4)),
+            (tops.fused_expand_bin(qw, words, ids, L=64, n_beam=4),
+             tref.fused_expand_bin_ref(qw, words, ids, 64, 4))):
         _close(out[0], exp[0])
         _close(out[2], exp[2])
         assert torch.equal(out[1], exp[1]) and torch.equal(out[3], exp[3])

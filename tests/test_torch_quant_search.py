@@ -196,11 +196,16 @@ def test_port_built_index_recall(refs, deep_ds, kind):
     assert abs(r0 - r1) <= 0.005, (r0, r1)
 
 
-def test_quant_arrays_are_the_reference_sidecars(refs, tmp_path):
-    """Every quantizer array a reference sq/pq save holds is one the port
-    loads, and nothing else."""
+def test_quant_arrays_are_the_reference_sidecars(refs, deep_index, tmp_path):
+    """Every quantizer array a reference sq/pq/bin save holds is one the
+    port loads, and nothing else (a pq4 save holds pq's names)."""
+    binned = RefKBest(dataclasses.replace(deep_index.config,
+                                          quant=RefQuantConfig(kind="bin")))
+    binned.db, binned.graph, binned.entry, binned.order = (
+        deep_index.db, deep_index.graph, deep_index.entry, deep_index.order)
+    binned._train_quant(binned.db)
     names = set()
-    for kind, ref in refs.items():
+    for kind, ref in {**refs, "bin": binned}.items():
         ref.save(str(tmp_path / kind))
         names |= set(np.load(str(tmp_path / f"{kind}.npz")).files)
     assert names - {"db", "graph", "order"} == set(QUANT_ARRAYS)
