@@ -29,7 +29,14 @@ Phases:
      path, QPS in turns with `none`, a save/load round trip of a pq4 and
      a bin index, and what caps their recall at 1M: pq4 re-ranked over
      its whole queue, bin twice as deep, and the share of the true top-10
-     within bin's exact Hamming top-320 over all rows.
+     within bin's exact Hamming top-320 over all rows;
+  7. the IVF family on the same 1,000,000 vectors and 10,000 queries (no
+     graph): the `ivf_index_config`, `ivf_pq4_index_config` and
+     `ivf_bin_index_config` presets for deep_like (nlist = 1,000, residual
+     codes, ip) built on the card and served in batches of 1,000 through
+     the three list-scan kernels, one batch of each on the plain path,
+     `ivf_pq` once more at 4x its nprobe, and a save/load round trip of
+     the bin index.
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -219,6 +226,7 @@ class Case(NamedTuple):
     cost: Callable
     sets: list
     exact: bool = False  # every output must equal the plain version's
+    scan: bool = False   # an IVF list scan: returns (dists, ids) (Q, P, L)
 
 
 def pq_bytes(codes, ids, nibbles: bool = False) -> int:
@@ -275,9 +283,68 @@ def kernel_inputs(db) -> dict:
     nw = -(-d // 32)
     words = torch.randint(-2 ** 31, 2 ** 31, (n + Q, nw), generator=g,
                           device=dev, dtype=torch.int64).to(torch.int32)
+    # IVF lists: 1,000 lists of max_len = 2,176 slots (17 * 128, the
+    # padding of a longest list of 2,100), ragged lengths in [0, 2,100],
+    # two lists all padding, 2% holes; codes per slot for PQ8 (m=16), PQ4
+    # (m=32, 16 bytes) and bin (three words)
+    nlist, max_len = 1000, 2176
+    lens = torch.randint(0, 2101, (nlist,), generator=g, device=dev)
+    lens[:2] = 0
+    slot = torch.arange(max_len, device=dev)[None]
+    lids = torch.randint(0, n, (nlist, max_len), generator=g, device=dev,
+                         dtype=torch.int32)
+    hole = torch.rand((nlist, max_len), generator=g, device=dev) < 0.02
+    lids = torch.where((slot < lens[:, None]) & ~hole, lids,
+                       torch.full_like(lids, -1))
+    lists = dict(ids=lids, pq=torch.randint(
+        0, 256, (nlist, max_len, 16), generator=g, device=dev,
+        dtype=torch.int32).to(torch.uint8), pq4=torch.randint(
+        0, 256, (nlist, max_len, 16), generator=g, device=dev,
+        dtype=torch.int32).to(torch.uint8), bin=torch.randint(
+        -2 ** 31, 2 ** 31, (nlist, max_len, nw), generator=g, device=dev,
+        dtype=torch.int64).to(torch.int32))
     return dict(db=db, q=q, codes=codes, scale=scale, zero=zero,
                 pcodes=pcodes, K=K, g=g, p4codes=p4codes, signs=words[:n],
-                qsigns=words[n:].contiguous())
+                qsigns=words[n:].contiguous(), lists=lists)
+
+
+def table_sectors(lists, codes, K, probes, per_probe) -> int:
+    """Bytes of the 32-byte table sectors a list scan must read: per
+    (query, probe) with a table per probe, per query over the union of its
+    probed lists otherwise, the sectors of each subspace's row of K f32
+    entries that the lists' valid codes hit (PQ4 codes unpacked)."""
+    import torch
+    ids = lists["ids"]
+    nlist = ids.shape[0]
+    c = codes.long()
+    if K == 16:                       # byte j: subspace 2j low, 2j+1 high
+        c = torch.stack([c & 15, c >> 4], dim=-1).flatten(-2)
+    m, nsec = c.shape[-1], K * 4 // SECTOR
+    mask = torch.zeros((nlist, m, nsec), dtype=torch.bool, device=ids.device)
+    li, _ = torch.nonzero(ids >= 0, as_tuple=True)
+    cv = c[ids >= 0]                                        # (valid, m)
+    j = torch.arange(m, device=ids.device)[None]
+    mask.view(-1)[((li[:, None] * m + j) * nsec + cv * 4 // SECTOR)
+                  .flatten()] = True
+    hit = mask[probes.long()]                               # (Q, P, m, nsec)
+    if not per_probe:
+        hit = hit.any(dim=1)
+    return int(hit.sum()) * SECTOR
+
+
+def scan_bytes(lists, codes, probes, L, lead_bytes) -> int:
+    """The list scans' bytes besides tables: each distinct probed list's
+    ids (all slots: the kernel reads them to find the valid ones) and
+    code rows of its valid slots once per call, the probes, the query
+    words or bias-free lead operand, and the (Q, P, L) outputs."""
+    import torch
+    ids = lists["ids"]
+    used = torch.unique(probes.long())
+    width = codes.shape[-1] * codes.element_size()
+    valid = int((ids[used] >= 0).sum())
+    Q, P = probes.shape
+    return (len(used) * ids.shape[1] * 4 + valid * width + Q * P * 4
+            + lead_bytes + Q * P * L * 8)
 
 
 def kernel_cases(inp: dict) -> "list[Case]":
@@ -322,11 +389,13 @@ def kernel_cases(inp: dict) -> "list[Case]":
     def valid(ids):
         return int((ids >= 0).sum())
 
-    def add(name, shape, main, fused, kern, plain, cost, draw, exact=False):
+    def add(name, shape, main, fused, kern, plain, cost, draw, exact=False,
+            scan=False):
         first = draw()
         k = min(256, max(1, -(-2 * L2_BYTES // cost(*first)[0])))
         cases.append(Case(name, shape, main, fused, kern, plain, cost,
-                          [first] + [draw() for _ in range(k - 1)], exact))
+                          [first] + [draw() for _ in range(k - 1)], exact,
+                          scan))
 
     # ---- the gathers: seeds (M=8) and W=1 steps (M=24); bytes: the valid
     # rows or codes, ids and outputs, queries, SQ scale and zero ----
@@ -427,6 +496,46 @@ def kernel_cases(inp: dict) -> "list[Case]":
                                         + io, 3.0 * valid(ids) * nw),
                     lambda W=W, M=M: (tied_ids(W, M),), exact=True)
 
+    # ---- the IVF list scans at the Deep1M presets' shapes, tables per
+    # probe (random) and per query (the ip presets' case, in the kernels
+    # line); ids of a scan equal on >= 99.5% of slots, bin exactly ----
+    lists = inp["lists"]
+    nlist, max_len = lists["ids"].shape
+
+    def probes(P):
+        return torch.argsort(torch.rand((Q, nlist), generator=g, device=dev),
+                             dim=1)[:, :P].to(torch.int32).contiguous()
+
+    for name, P, L, m_, K_, codes_ in (("ivf_scan", 24, 128, 16, 256, "pq"),
+                                       ("pq4_ivf_scan", 32, 192, 32, 16,
+                                        "pq4")):
+        lc = lists[codes_]
+        fn = ops.ivf_scan if K_ == 256 else ops.pq4_ivf_scan
+        plain = ref.ivf_scan_ref if K_ == 256 else ref.pq4_ivf_scan_ref
+        for Pl in (P, 1):
+            add(name, f"Q={Q} P={P} Pl={Pl} L={L} m={m_} K={K_} nlist={nlist}"
+                f" max_len={max_len}", Pl == 1, False,
+                lambda t, pr, fn=fn, L=L, lc=lc: fn(t, lc, lists["ids"], pr,
+                                                    L=L),
+                lambda t, pr, plain=plain, L=L, lc=lc: plain(
+                    t, lc, lists["ids"], pr, L),
+                lambda t, pr, L=L, lc=lc, K_=K_, Pl=Pl: (
+                    table_sectors(lists, lc, K_, pr, Pl > 1)
+                    + scan_bytes(lists, lc, pr, L, 0),
+                    float(int((lists["ids"][pr.long()] >= 0).sum()) * m_)),
+                lambda P=P, Pl=Pl, m_=m_, K_=K_: (
+                    torch.randn((Q, Pl, m_, K_), generator=g, device=dev),
+                    probes(P)), scan=True)
+    add("bin_ivf_scan", f"Q={Q} P=96 L=768 nw={nw} nlist={nlist} "
+        f"max_len={max_len}", True, False,
+        lambda pr: ops.bin_ivf_scan(qsigns, lists["bin"], lists["ids"], pr,
+                                    L=768),
+        lambda pr: ref.bin_ivf_scan_ref(qsigns, lists["bin"], lists["ids"],
+                                        pr, 768),
+        lambda pr: (scan_bytes(lists, lists["bin"], pr, 768, Q * nw * 4),
+                    3.0 * nw * int((lists["ids"][pr.long()] >= 0).sum())),
+        lambda: (probes(96),), exact=True, scan=True)
+
     # ---- batch_dist: Q x n x d, both metrics; a 4 GB output a call ----
     for mt in ("ip", "l2"):
         add("batch_dist", f"Q={Q} B={n} d={d} {mt}", mt == "ip", False,
@@ -450,7 +559,18 @@ def phase_kernels(db):
         out, exp = c.kern(*c.sets[0]), c.plain(*c.sets[0])
         torch.cuda.synchronize()
         note = ""
-        if c.exact:
+        if c.scan:
+            same = float((out[1] == exp[1]).float().mean())
+            if c.exact:
+                assert torch.equal(out[0], exp[0]) and same == 1.0, \
+                    f"{c.name} {c.shape}: ids equal on {same:.6f}"
+                err = 0.0
+            else:
+                ok, err = close(out[0], exp[0])
+                assert ok and same >= 0.995, \
+                    f"{c.name} {c.shape}: dists {ok} ({err}), ids {same}"
+            note = f", ids equal on {same:.4%} of {exp[1].numel()} slots"
+        elif c.exact:
             outs = out if c.fused else (out,)
             exps = exp if c.fused else (exp,)
             same = [torch.equal(a, b) for a, b in zip(outs, exps)]
@@ -485,15 +605,22 @@ def phase_kernels(db):
             t.update(device_ms=t["ms"], plain_device_ms=t["plain_ms"])
             lib = ("torch.matmul", cuda_ms(
                 lambda: torch.matmul(inp["q"], db.T)))
+        elif c.scan:
+            # the plain scans gather whole lists per query: events only
+            t.update(device_ms=graph_ms(c.kern, c.sets),
+                     plain_device_ms=None)
+            lib = None
         else:
             t.update(device_ms=graph_ms(c.kern, c.sets),
                      plain_device_ms=graph_ms(c.plain, c.sets))
             lib = None
+        plain_dev = ("not measured" if t["plain_device_ms"] is None
+                     else f"{t['plain_device_ms']:.4f} ms")
         log(f"[{c.name}] {c.shape}: {t['device_ms']:.4f} ms on the device "
             f"over {len(c.sets)} input sets ({t['ms']:.4f} ms a call with "
             f"its launch), bound {b_ms:.4f} ms ({b_by}, "
             f"{b_ms / t['device_ms']:.1%} of it), plain "
-            f"{t['plain_device_ms']:.4f} ms ({t['plain_ms']:.4f}), library "
+            f"{plain_dev} ({t['plain_ms']:.4f}), library "
             + ("none" if lib is None else f"{lib[0]} {lib[1]:.4f} ms")
             + f", max err {err:.2e}{note}")
         if c.main:
@@ -986,6 +1113,107 @@ def probe_depth(idx, ds, served, pq4_quant):
         f"{float(h.float().mean()):.1f} of {b.bin.dim})")
 
 
+def phase_ivf(ds, none_rec):
+    """The IVF presets for deep_like on phase 4's 1M vectors (no graph):
+    each built on the card and all queries served through the list-scan
+    kernels, one batch on the plain path held against them, the idle
+    share, n_dist, the list lengths, build stages, peak memory and code
+    bytes; ivf_pq once more at 4x its nprobe; a 1M save/load round trip
+    of the bin index. Fault floors (written before the first run) detect
+    faults; they are no targets."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.kbest import (ivf_bin_index_config,
+                                           ivf_index_config,
+                                           ivf_pq4_index_config)
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.index import KBest
+    from repro_torch.kernels import ops
+
+    presets = {"ivf_pq": ivf_index_config("deep_like"),
+               "ivf_pq4": ivf_pq4_index_config("deep_like"),
+               "ivf_bin": ivf_bin_index_config("deep_like")}
+    qb = ds.queries[:BATCH]
+    rep = REPORT["ivf"] = {}
+    rec = {}
+    ops.reset_launch_counts()
+    for name, cfg in presets.items():
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        idx = KBest(cfg, device=DEVICE).add(ds.base, timings=StageLog(name))
+        sync()
+        build_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30
+                   if DEVICE == "cuda" else 0.0)
+        lens = (idx.ivf.list_ids >= 0).sum(1).float()
+        spread = dict(nlist=idx.ivf.nlist, max_len=idx.ivf.max_len,
+                      min=int(lens.min()), median=float(lens.median()),
+                      max=int(lens.max()), std=float(lens.std()))
+        code_b = qz.code_bytes_per_vector(idx)
+        r = rep[name] = dict(build_s=build_s, peak_gib=peak_gb,
+                             stages={k: round(v, 3)
+                                     for k, v in idx.build_times.items()},
+                             lists=spread, code_bytes=code_b)
+        log(f"[{name}] build {build_s:.1f} s, peak device memory "
+            f"{peak_gb:.2f} GiB, {code_b} code bytes per vector, lists "
+            f"{json.dumps(spread)}")
+        kern = dataclasses.replace(cfg.search, dist_impl="kernel")
+        ids, row = serve(idx, ds.queries, ds.gt_ids, kern)
+        _, plain_ids = idx.search(qb, search_cfg=dataclasses.replace(
+            kern, dist_impl="ref"))
+        row.update(L=kern.L, nprobe=kern.nprobe, plain_ids_equal=float(
+            np.mean(ids[:BATCH] == plain_ids.cpu().numpy())))
+        r["row"] = row
+        rec[name] = row["recall"]
+        dev_ms, wall_ms = device_busy(lambda: idx.search(qb, search_cfg=kern))
+        r["profile"] = dict(device_ms=dev_ms, wall_ms=wall_ms)
+        log(f"[{name}] nprobe={kern.nprobe} L={kern.L}: recall@10 "
+            f"{row['recall']:.4f}, QPS {row['qps']:.0f}, n_dist/q "
+            f"{row['dists_per_query']:.1f}; kernel vs plain on one batch: "
+            f"ids equal on {row['plain_ids_equal']:.4%}; one batch of "
+            f"{BATCH}: device kernels {dev_ms:.2f} ms of {wall_ms:.2f} ms "
+            f"wall (idle share {1 - dev_ms / wall_ms:.1%}, under the "
+            f"profiler); graph none at W=4: {none_rec[(4, 'kernel')]:.4f}")
+        assert row["plain_ids_equal"] >= (1.0 if name == "ivf_bin"
+                                          else 0.995), row
+        if name == "ivf_pq":
+            # 4x the probes: does the probe fraction (2.4% of the lists at
+            # 1M against 10.7% at the 50k the preset was tuned at) or the
+            # codes set the recall?
+            wide = dataclasses.replace(kern, nprobe=4 * kern.nprobe)
+            _, row4 = serve(idx, ds.queries, ds.gt_ids, wide)
+            row4.update(L=wide.L, nprobe=wide.nprobe)
+            r["nprobe_x4"] = row4
+            log(f"[{name}] nprobe={wide.nprobe}: recall@10 "
+                f"{row4['recall']:.4f}, QPS {row4['qps']:.0f}, n_dist/q "
+                f"{row4['dists_per_query']:.1f}")
+        if name == "ivf_bin":
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                idx.save(f"{tmp}/deep1m.ivf")
+                back = KBest.load(f"{tmp}/deep1m.ivf", device=DEVICE)
+                rt_s = time.perf_counter() - t0
+            _, i2 = back.search(qb, search_cfg=kern)
+            _, i3 = idx.search(qb, search_cfg=kern)
+            assert torch.equal(i2, i3)
+            log(f"[{name}] save/load round trip {rt_s:.1f} s: identical ids")
+            r["save_load_s"] = rt_s
+            del back
+        del idx
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    log(f"[ivf] kernel launches on the IVF paths: {counts}")
+    rep["launches"] = counts
+    for k in ("ivf_scan", "pq4_ivf_scan", "bin_ivf_scan", "gather_dist"):
+        assert counts[k] > 0, counts
+    # fault floors: a recall this low means a broken build, codec or scan
+    assert all(v >= 0.30 for v in rec.values()), rec
+    assert rep["ivf_pq"]["nprobe_x4"]["recall"] >= rec["ivf_pq"], rec
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1015,9 +1243,13 @@ def main() -> int:
     counts, idx, ds, none_rec = timed("main", phase_main)
     qcounts = timed("quant", phase_quant, idx, ds, none_rec)
     bcounts = timed("pq4 and bin", phase_pq4_bin, idx, ds, none_rec)
+    del idx
+    torch.cuda.empty_cache()
+    icounts = timed("ivf", phase_ivf, ds, none_rec)
     csrc = "src/repro_torch/kernels/csrc/"
     # name: (source, the TPU kernel it replaces, the path whose launches
-    # count: phase 4's main path, phase 5's or phase 6's quantized paths)
+    # count: phase 4's main path, phase 5's or phase 6's quantized paths,
+    # phase 7's IVF paths)
     sources = {
         "gather_dist": (csrc + "gather_dist.cu",
                         "src/repro/kernels/gather_dist.py:49", counts),
@@ -1041,13 +1273,26 @@ def main() -> int:
         "bin_dist": (csrc + "bin_hamming.cu",
                      "src/repro/kernels/bin_hamming.py:55", bcounts),
         "fused_expand_bin": (csrc + "traverse_step.cu",
-                             "src/repro/kernels/bin_hamming.py:99", bcounts)}
+                             "src/repro/kernels/bin_hamming.py:99", bcounts),
+        "pq4_ivf_scan": (csrc + "ivf_scan.cu",
+                         "src/repro/kernels/pq4_scan.py:119", icounts),
+        "bin_ivf_scan": (csrc + "ivf_scan.cu",
+                         "src/repro/kernels/bin_hamming.py:149", icounts),
+        "ivf_scan": (csrc + "ivf_scan.cu",
+                     "src/repro/kernels/ivf_scan.py:62", icounts)}
     kernels = []
     for name, (src, rep, path_counts) in sources.items():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=path_counts[name],
                             **rows[name]))
     REPORT["kernels"] = kernels
+    # what each kernel's time above its bound cost its path in this run:
+    # launches x (device ms - bound ms), the order of the redesigns to come
+    excess = sorted(((k["launches"] * (k["device_ms"] - k["bound_ms"]),
+                      k["name"]) for k in kernels), reverse=True)
+    REPORT["excess_ms"] = {name: ms for ms, name in excess}
+    log("[kernels] launches x (device ms - bound ms): " + ", ".join(
+        f"{name} {ms:.1f}" for ms, name in excess))
     REPORT["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,18 +1,19 @@
-"""The paper's own system configs for the graph index: recommended KBest
-parameters per evaluation dataset (paper Table 3/4).
+"""The paper's own system configs for the graph and IVF indexes:
+recommended KBest parameters per evaluation dataset (paper Table 3/4).
 
-A copy of the graph presets of the JAX package's `repro/configs/kbest.py`
-(`index_config`, `beam_index_config`, `sq_index_config`, `bin_index_config`,
-`smoke_config`), with the same values, so a preset names the same index in
-both packages.
+A copy of the index presets of the JAX package's `repro/configs/kbest.py`
+(graph: `index_config`, `beam_index_config`, `sq_index_config`,
+`bin_index_config`, `smoke_config`; IVF: `ivf_index_config`,
+`ivf_pq4_index_config`, `ivf_bin_index_config`, `ivf_smoke_config`), with
+the same values, so a preset names the same index in both packages.
 
     from repro_torch.configs import kbest
     cfg = kbest.beam_index_config("deep_like")
 """
 import dataclasses
 
-from repro_torch.core.types import (BuildConfig, IndexConfig, QuantConfig,
-                                    SearchConfig)
+from repro_torch.core.types import (BuildConfig, IndexConfig, IVFConfig,
+                                    QuantConfig, SearchConfig)
 
 SHAPES = ("glove_like", "deep_like", "t2i_like", "bigann_like")
 
@@ -49,14 +50,39 @@ _CONFIGS = {
 _BEAM_W = {"glove_like": 4, "deep_like": 4, "t2i_like": 4, "bigann_like": 4}
 
 
-# bin presets, graph side (the reference's DESIGN.md §14): the 1-bit
-# Hamming first pass needs a wider queue and a deep exact rescore,
-# (L, rescore_factor), to hold recall at codes 32x smaller than f32
+# IVF-PQ presets: pq_m divides dim; nprobe and L tuned for the re-ranked
+# pipeline (the whole candidate queue is re-ranked)
+_IVF_CONFIGS = {
+    "glove_like": dict(dim=100, metric="ip", pq_m=20, nprobe=32, L=192),
+    "deep_like": dict(dim=96, metric="ip", pq_m=16, nprobe=24, L=128),
+    "t2i_like": dict(dim=200, metric="ip", pq_m=20, nprobe=32, L=192),
+    "bigann_like": dict(dim=128, metric="l2", pq_m=16, nprobe=32, L=192),
+}
+
+# pq4 presets (the reference's DESIGN.md §13): 4-bit codes are coarser per
+# subspace, so these spend some of the halved bytes on more subspaces and
+# widen the re-ranked queue and the probe count
+_IVF_PQ4_CONFIGS = {
+    "glove_like": dict(dim=100, metric="ip", pq_m=20, nprobe=48, L=256),
+    "deep_like": dict(dim=96, metric="ip", pq_m=32, nprobe=32, L=192),
+    "t2i_like": dict(dim=200, metric="ip", pq_m=40, nprobe=48, L=256),
+    "bigann_like": dict(dim=128, metric="l2", pq_m=32, nprobe=48, L=384),
+}
+
+# bin presets (the reference's DESIGN.md §14): the 1-bit Hamming first
+# pass needs a wider queue and a deep exact rescore to hold recall at codes
+# 32x smaller than f32 — (L, rescore_factor) on the graph side, (nprobe,
+# ivf_L, ivf_rescore_factor) on the IVF side, whose flat scan keeps no
+# traversal queue and so overfetches much deeper
 _BIN_CONFIGS = {
-    "glove_like": dict(L=320, rescore_factor=32),
-    "deep_like": dict(L=320, rescore_factor=32),
-    "t2i_like": dict(L=320, rescore_factor=32),
-    "bigann_like": dict(L=384, rescore_factor=32),
+    "glove_like": dict(L=320, rescore_factor=32,
+                       nprobe=96, ivf_L=768, ivf_rescore_factor=64),
+    "deep_like": dict(L=320, rescore_factor=32,
+                      nprobe=96, ivf_L=768, ivf_rescore_factor=64),
+    "t2i_like": dict(L=320, rescore_factor=32,
+                     nprobe=96, ivf_L=768, ivf_rescore_factor=64),
+    "bigann_like": dict(L=384, rescore_factor=32,
+                        nprobe=96, ivf_L=768, ivf_rescore_factor=64),
 }
 
 
@@ -102,3 +128,45 @@ def smoke_config() -> IndexConfig:
         build=BuildConfig(M=8, knn_k=12, refine_iters=1, refine_cands=24,
                           reorder="mst"),
         search=SearchConfig(L=16, k=5))
+
+
+def ivf_index_config(dataset: str) -> IndexConfig:
+    """IVF preset with 8-bit residual PQ codes."""
+    c = _IVF_CONFIGS[dataset]
+    return IndexConfig(
+        dim=c["dim"], metric=c["metric"], index_type="ivf",
+        ivf=IVFConfig(nlist=0, kmeans_iters=10),
+        quant=QuantConfig(kind="pq", pq_m=c["pq_m"], kmeans_iters=8),
+        search=SearchConfig(L=c["L"], k=10, nprobe=c["nprobe"]))
+
+
+def ivf_pq4_index_config(dataset: str) -> IndexConfig:
+    """IVF preset with 4-bit fast-scan codes (half ivf_index_config's bytes
+    at equal m; these double m where dim allows)."""
+    c = _IVF_PQ4_CONFIGS[dataset]
+    return IndexConfig(
+        dim=c["dim"], metric=c["metric"], index_type="ivf",
+        ivf=IVFConfig(nlist=0, kmeans_iters=10),
+        quant=QuantConfig(kind="pq4", pq_m=c["pq_m"], kmeans_iters=10),
+        search=SearchConfig(L=c["L"], k=10, nprobe=c["nprobe"]))
+
+
+def ivf_bin_index_config(dataset: str) -> IndexConfig:
+    """IVF preset with the 1-bit sign codec: Hamming list scans (no table
+    stage), then the exact rescore of the rescore_factor * k overfetch."""
+    c = _IVF_CONFIGS[dataset]
+    b = _BIN_CONFIGS[dataset]
+    return IndexConfig(
+        dim=c["dim"], metric=c["metric"], index_type="ivf",
+        ivf=IVFConfig(nlist=0, kmeans_iters=10),
+        quant=QuantConfig(kind="bin"),
+        search=SearchConfig(L=b["ivf_L"], k=10, nprobe=b["nprobe"],
+                            rescore_factor=b["ivf_rescore_factor"]))
+
+
+def ivf_smoke_config() -> IndexConfig:
+    return IndexConfig(
+        dim=32, metric="l2", index_type="ivf",
+        ivf=IVFConfig(nlist=8, kmeans_iters=4, list_pad=8),
+        quant=QuantConfig(kind="pq", pq_m=8, kmeans_iters=3),
+        search=SearchConfig(L=16, k=5, nprobe=4))

@@ -1,23 +1,29 @@
-"""KBest — the user-facing API (paper §4, Table 2), graph family.
+"""KBest — the user-facing API (paper §4, Table 2), both index families.
 
     index = KBest(config)              # on the card; device="cpu" for tests
     index.add(x)                       # index construction (build pipeline)
     d, i = index.search(q, k)          # query processing
     index.save(path) / KBest.load(path)
 
-The counterpart of the JAX package's `repro/core/index.py` for
-`index_type="graph"` with every `QuantConfig.kind`: "none", "sq", "pq",
-"pq4" and "bin" (DESIGN.md §3, §13, §14): kNN graph (brute /
-NN-descent) -> edge selection -> search-based and 2-hop refinement (A1)
--> reverse-edge fill -> connectivity repair -> MST reordering (A2) ->
-medoid entry point -> the quantizer's training and codes over the
-reordered rows (A4); search runs the batched traversal of core.search
-with early termination (A3), and a quantized first pass is re-ranked with
-exact distances (bin: its rescore_factor * k overfetch). Saves are the
-reference's format 2, readable by either package.
+The counterpart of the JAX package's `repro/core/index.py`, with every
+`QuantConfig.kind` of each family (DESIGN.md §3, §4, §13, §14).
 
-The IVF family is not ported yet (ROADMAP.md, "Modules to port", item 8)
-and raises NotImplementedError.
+`index_type="graph"`: kNN graph (brute / NN-descent) -> edge selection ->
+search-based and 2-hop refinement (A1) -> reverse-edge fill ->
+connectivity repair -> MST reordering (A2) -> medoid entry point -> the
+quantizer's training and codes over the reordered rows (A4) for "sq",
+"pq", "pq4" or "bin"; search runs the batched traversal of core.search
+with early termination (A3), and a quantized first pass is re-ranked with
+exact distances (bin: its rescore_factor * k overfetch).
+
+`index_type="ivf"`: coarse k-means -> residual PQ, PQ4 or raw-vector bin
+codes -> padded inverted lists (core/ivf.py); search probes the nprobe
+nearest lists, scans them with a per-list top-L (the list-scan kernels)
+and re-ranks the whole merged candidate queue exactly (bin: its
+rescore_factor * k overfetch; `QuantConfig.rerank` when set). Padded
+lanes of `search_padded` compute and are then masked.
+
+Saves are the reference's format 2, readable by either package.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import build as build_mod
+from repro_torch.core import ivf as ivf_mod
 from repro_torch.core import persist
 from repro_torch.core import quantize as qz
 from repro_torch.core import reorder as reorder_mod
@@ -40,11 +47,12 @@ from repro_torch.core.distance import normalize
 from repro_torch.core.refine import _chunk_dists, _sync, refine_graph
 from repro_torch.core.types import IndexConfig, SearchConfig
 
-_IVF_NOT_PORTED = ("the IVF family is not ported yet (ROADMAP.md, Modules "
-                   "to port, item 8)")
 # the quantizer state a format-2 save holds beside db, graph and order
 QUANT_ARRAYS = ("pq_codebooks", "pq_codes", "sq_scale", "sq_zero", "sq_codes",
                 "bin_rot", "bin_codes")
+# the IVF state a format-2 save holds beside db
+IVF_ARRAYS = ("ivf_centroids", "ivf_list_ids", "ivf_list_codes",
+              "ivf_codebooks", "ivf_bin_rot")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,17 +67,9 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def check_supported(config: IndexConfig) -> None:
-    """Every quantization kind of the graph family is ported; the IVF
-    family is not yet."""
-    if config.index_type == "ivf":
-        raise NotImplementedError(_IVF_NOT_PORTED)
-
-
 class KBest:
     def __init__(self, config: IndexConfig, device=None,
                  node_chunk: Optional[int] = None):
-        check_supported(config)
         self.config = config
         self.device = resolve_device(device)
         # rows per build-time chunk; results do not depend on it
@@ -88,6 +88,7 @@ class KBest:
         self.sq_codes: Optional[torch.Tensor] = None  # (n, d) u8
         self.bin: Optional[qz.BinState] = None
         self.bin_codes: Optional[torch.Tensor] = None  # (n, ceil(d/32)) i32
+        self.ivf: Optional[ivf_mod.IVFState] = None
         self._fns = {}
 
     @property
@@ -100,7 +101,8 @@ class KBest:
         """Build the index over x (n, d). `init_ids` (n, knn_k) optionally
         replaces the NN-descent random start (build.random_init_ids);
         `timings`, when given, receives each stage's seconds as it ends
-        (it becomes `build_times`)."""
+        (it becomes `build_times`). An IVF config builds core/ivf.py's
+        lists instead of a graph."""
         cfg = self.config
         assert cfg.n_shards == 1, \
             "config.n_shards > 1 is the sharded composition, not ported yet"
@@ -122,6 +124,12 @@ class KBest:
             x = normalize(x)
         metric = self._metric
         lap("upload")
+        if cfg.index_type == "ivf":
+            self.db = x.contiguous()
+            self.ivf = ivf_mod.build_ivf(self.db, cfg.ivf, cfg.quant,
+                                         timings=times)
+            self._fns = {}
+            return self
 
         knn_ids, knn_dists = build_mod.build_knn(
             x, b.knn_k, metric, builder=b.builder,
@@ -232,6 +240,8 @@ class KBest:
                      valid_mask: Optional[torch.Tensor]):
         """Shared body of search/search_padded. Returns (dists, ids,
         stats)."""
+        if self.ivf is not None:
+            return self._search_ivf(q, scfg)
         n = self.db.shape[0]
         entry_ids = self._entry_ids(scfg.n_entries, n)
         kind = self.config.quant.kind
@@ -263,6 +273,32 @@ class KBest:
             ids = torch.where(ids >= 0,
                               self._order_t[torch.clamp(ids, min=0).long()],
                               torch.full_like(ids, -1))
+        return dists, ids, stats
+
+    def _search_ivf(self, q: torch.Tensor, scfg: SearchConfig):
+        """The IVF body: probe, scan and merge the widened queue, then
+        re-rank all of it exactly (bin: its rescore_factor * k overfetch;
+        quant.rerank when set). n_dist counts the codes scanned plus the
+        exact distances; n_hops is the lists probed."""
+        quant = self.config.quant
+        wide = _widen_bin(scfg) if quant.kind == "bin" else _widen(scfg)
+        _, cand, probes = ivf_mod.search_ivf(
+            self.ivf, q, scfg.nprobe, wide.L, self._metric,
+            impl=scfg.dist_impl,
+            lut_u8=quant.kind == "pq4" and quant.pq4_lut_u8)
+        if quant.kind == "bin" and quant.rerank == 0:
+            rerank = scfg.rescore_factor * scfg.k
+        else:
+            rerank = quant.rerank if quant.rerank > 0 else cand.shape[1]
+        dists, ids, n_exact = self._rerank(q, cand, scfg.k, rerank,
+                                           scfg.dist_impl)
+        Q, dev = q.shape[0], q.device
+        stats = search_mod.SearchStats(
+            n_hops=torch.full((Q,), min(scfg.nprobe, self.ivf.nlist),
+                              dtype=torch.int32, device=dev),
+            n_dist=ivf_mod.scanned_counts(self.ivf, probes) + n_exact,
+            early_terminated=torch.zeros((Q,), dtype=torch.bool, device=dev),
+            iters=torch.zeros((), dtype=torch.int32, device=dev))
         return dists, ids, stats
 
     def _operand(self, q: torch.Tensor) -> torch.Tensor:
@@ -371,8 +407,11 @@ class KBest:
         crc32 per array commits it."""
         p = Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
-        arrs = {"db": self.db.cpu().numpy(),
-                "graph": self.graph.cpu().numpy()}
+        arrs = {"db": self.db.cpu().numpy()}
+        if self.graph is not None:
+            arrs["graph"] = self.graph.cpu().numpy()
+        if self.ivf is not None:
+            arrs.update(_ivf_arrays(self.ivf))
         if self.order is not None:
             arrs["order"] = np.asarray(self.order)
         if self.pq is not None:
@@ -414,24 +453,62 @@ class KBest:
                             _config_from_dict(meta["config"]), device)
 
 
+def _ivf_arrays(ivf: ivf_mod.IVFState) -> dict:
+    """The IVF state as the reference saves it (bin list words as its
+    uint32)."""
+    codes = ivf.list_codes.cpu().numpy()
+    arrs = {"ivf_centroids": ivf.centroids.cpu().numpy(),
+            "ivf_list_ids": ivf.list_ids.cpu().numpy(),
+            "ivf_list_codes": (codes.view(np.uint32) if ivf.bin is not None
+                               else codes)}
+    if ivf.pq is not None:
+        arrs["ivf_codebooks"] = ivf.pq.codebooks.cpu().numpy()
+    if ivf.bin is not None:
+        arrs["ivf_bin_rot"] = ivf.bin.rot.cpu().numpy()
+    return arrs
+
+
 def _from_arrays(arrays: dict, entry: int, config: IndexConfig,
                  device) -> KBest:
     idx = KBest(config, device=device)
-    extra = sorted(set(arrays) - {"db", "graph", "order", *QUANT_ARRAYS})
+    extra = sorted(set(arrays) - {"db", "graph", "order", *QUANT_ARRAYS,
+                                  *IVF_ARRAYS})
     if extra:
-        raise NotImplementedError(
-            f"index arrays {extra} belong to a family or kind not ported "
-            f"yet (ROADMAP.md, Modules to port)")
+        raise ValueError(f"unknown index arrays {extra}")
 
     def put(name, dtype):
         return torch.as_tensor(np.array(arrays[name], dtype=dtype),
                                device=idx.device)
 
-    idx._set_state(put("db", np.float32), put("graph", np.int32), entry,
-                   arrays.get("order"))
+    def put_words(name):
+        """uint32 sign words on disk as their int32 bit-views."""
+        return torch.as_tensor(
+            np.array(arrays[name], dtype=np.uint32).view(np.int32),
+            device=idx.device)
+
+    def pq_state(name):
+        books = put(name, np.float32)
+        return qz.PQState(books, books.shape[0], books.shape[2])
+
+    if "graph" in arrays:
+        idx._set_state(put("db", np.float32), put("graph", np.int32), entry,
+                       arrays.get("order"))
+    else:
+        idx.db = put("db", np.float32).contiguous()
+    if "ivf_centroids" in arrays:
+        binned = "ivf_bin_rot" in arrays
+        idx.ivf = ivf_mod.IVFState(
+            centroids=put("ivf_centroids", np.float32),
+            list_ids=put("ivf_list_ids", np.int32),
+            list_codes=(put_words("ivf_list_codes") if binned
+                        else put("ivf_list_codes", np.uint8)),
+            pq=pq_state("ivf_codebooks") if "ivf_codebooks" in arrays
+            else None,
+            residual=config.ivf.residual, packed=config.quant.kind == "pq4",
+            bin=qz.BinState(put("ivf_bin_rot", np.float32)) if binned
+            else None)
     if "pq_codebooks" in arrays:
-        books = put("pq_codebooks", np.float32)
-        idx.pq = qz.PQState(books, books.shape[0], books.shape[2])
+        idx.pq = pq_state("pq_codebooks")
         idx.pq_codes = put("pq_codes", np.uint8)
     if "sq_scale" in arrays:
         idx.sq = qz.SQState(put("sq_scale", np.float32),
@@ -439,9 +516,7 @@ def _from_arrays(arrays: dict, entry: int, config: IndexConfig,
         idx.sq_codes = put("sq_codes", np.uint8)
     if "bin_rot" in arrays:
         idx.bin = qz.BinState(put("bin_rot", np.float32))
-        idx.bin_codes = torch.as_tensor(
-            np.array(arrays["bin_codes"], dtype=np.uint32).view(np.int32),
-            device=idx.device)
+        idx.bin_codes = put_words("bin_codes")
     return idx
 
 

@@ -1,11 +1,14 @@
-"""Wrapper of the `bin_dist` CUDA kernel (csrc/bin_hamming.cu).
+"""Wrappers of the `bin_dist` CUDA kernel (csrc/bin_hamming.cu) and the
+`bin_ivf_scan` one (csrc/ivf_scan.cu).
 
-The counterpart of the JAX package's Pallas `bin_dist`
-(src/repro/kernels/bin_hamming.py): (Q, nw) packed query signs, (n, nw)
-packed database signs, (Q, B) int32 ids -> (Q, B) f32 Hamming distances,
-+inf where an id is < 0. The sign words are `torch.int32` tensors holding
-the bits of the reference's uint32 words. `launches` counts the kernel
-launches made through this wrapper.
+The counterparts of the JAX package's Pallas `bin_dist` and
+`bin_ivf_scan` (src/repro/kernels/bin_hamming.py). `bin_dist`: (Q, nw)
+packed query signs, (n, nw) packed database signs, (Q, B) int32 ids ->
+(Q, B) f32 Hamming distances, +inf where an id is < 0. `bin_ivf_scan`:
+the list scan of kernels/ivf_scan.py by Hamming distance between (Q, nw)
+query words and (nlist, max_len, nw) list words, exact. The sign words are
+`torch.int32` tensors holding the bits of the reference's uint32 words.
+`launches` counts the kernel launches made through these wrappers.
 """
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_dist import check, raise_on, stream_ptr
+from repro_torch.kernels.ivf_scan import check_lists, launch_scan
 
-launches = {"bin_dist": 0}
+launches = {"bin_dist": 0, "bin_ivf_scan": 0}
 # the C launcher's signature: pointers, ints, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
@@ -52,3 +56,15 @@ def bin_dist(qcodes: torch.Tensor, codes: torch.Tensor,
     raise_on(err, "bin_dist")
     launches["bin_dist"] += 1
     return out
+
+
+def bin_ivf_scan(qcodes: torch.Tensor, list_codes: torch.Tensor,
+                 list_ids: torch.Tensor, probe_ids: torch.Tensor, L: int):
+    check(qcodes, "qcodes", torch.int32, 2)
+    check_lists(list_codes, list_ids, probe_ids, torch.int32, L, qcodes)
+    if list_codes.shape[2] != qcodes.shape[1]:
+        raise ValueError(f"list_codes {tuple(list_codes.shape)} must hold "
+                         f"nw={qcodes.shape[1]} words a slot")
+    return launch_scan(launches, "bin_ivf_scan", "bin_ivf_scan_u32",
+                       [qcodes], list_codes, list_ids, probe_ids, L,
+                       [qcodes.shape[1]])

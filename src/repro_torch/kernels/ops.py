@@ -19,13 +19,14 @@ import torch
 from repro_torch.kernels import batch_dist as _bd
 from repro_torch.kernels import bin_hamming as _bh
 from repro_torch.kernels import gather_dist as _gd
+from repro_torch.kernels import ivf_scan as _iv
 from repro_torch.kernels import pq4_scan as _p4
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import ref
 from repro_torch.kernels import traverse_step as _ts
 
 # each wrapper module's `launches` maps its kernels' names to their counts
-_WRAPPERS = (_gd, _ts, _bd, _pq, _p4, _bh)
+_WRAPPERS = (_gd, _ts, _bd, _pq, _p4, _bh, _iv)
 
 
 def _kernel_metric(metric: str) -> str:
@@ -130,6 +131,35 @@ def fused_expand_bin(qcodes: torch.Tensor, codes: torch.Tensor,
     if qcodes.is_cuda:
         return _ts.fused_expand_bin(qcodes, codes, ids, L, n_beam)
     return ref.fused_expand_bin_ref(qcodes, codes, ids, L, n_beam)
+
+
+def ivf_scan(luts: torch.Tensor, list_codes: torch.Tensor,
+             list_ids: torch.Tensor, probe_ids: torch.Tensor, *, L: int):
+    """(Q, Pl, m, K) tables (Pl in {1, P}), (nlist, max_len, m) u8 list
+    codes, (nlist, max_len) int32 list ids, (Q, P) int32 probes -> each
+    probed list's top-L (dists (Q, P, L) ascending, ids (Q, P, L), -1
+    where +inf); 1 <= L <= max_len."""
+    if luts.is_cuda:
+        return _iv.ivf_scan(luts, list_codes, list_ids, probe_ids, L)
+    return ref.ivf_scan_ref(luts, list_codes, list_ids, probe_ids, L)
+
+
+def pq4_ivf_scan(luts: torch.Tensor, list_codes: torch.Tensor,
+                 list_ids: torch.Tensor, probe_ids: torch.Tensor, *, L: int):
+    """PQ4 twin of ivf_scan: (Q, Pl, m, 16) tables, (nlist, max_len, m/2)
+    nibble-packed list codes."""
+    if luts.is_cuda:
+        return _p4.pq4_ivf_scan(luts, list_codes, list_ids, probe_ids, L)
+    return ref.pq4_ivf_scan_ref(luts, list_codes, list_ids, probe_ids, L)
+
+
+def bin_ivf_scan(qcodes: torch.Tensor, list_codes: torch.Tensor,
+                 list_ids: torch.Tensor, probe_ids: torch.Tensor, *, L: int):
+    """Hamming twin of ivf_scan: (Q, nw) int32 query words, (nlist,
+    max_len, nw) int32 list words; exact."""
+    if qcodes.is_cuda:
+        return _bh.bin_ivf_scan(qcodes, list_codes, list_ids, probe_ids, L)
+    return ref.bin_ivf_scan_ref(qcodes, list_codes, list_ids, probe_ids, L)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,10 +1,13 @@
-"""Wrapper of the `pq4_adc` CUDA kernel (csrc/pq4_scan.cu).
+"""Wrappers of the `pq4_adc` CUDA kernel (csrc/pq4_scan.cu) and the
+`pq4_ivf_scan` one (csrc/ivf_scan.cu).
 
-The counterpart of the JAX package's Pallas `pq4_adc`
-(src/repro/kernels/pq4_scan.py): (Q, m, 16) f32 lookup tables, (n, m/2) u8
-nibble-packed PQ4 codes (byte b: subspace 2b low, 2b+1 high), (Q, B) int32
-ids -> (Q, B) f32 ADC distances, +inf where an id is < 0. `launches`
-counts the kernel launches made through this wrapper.
+The counterparts of the JAX package's Pallas `pq4_adc` and `pq4_ivf_scan`
+(src/repro/kernels/pq4_scan.py). `pq4_adc`: (Q, m, 16) f32 lookup tables,
+(n, m/2) u8 nibble-packed PQ4 codes (byte b: subspace 2b low, 2b+1 high),
+(Q, B) int32 ids -> (Q, B) f32 ADC distances, +inf where an id is < 0.
+`pq4_ivf_scan`: the list scan of kernels/ivf_scan.py over (Q, Pl, m, 16)
+tables and (nlist, max_len, m/2) packed list codes. `launches` counts the
+kernel launches made through these wrappers.
 """
 from __future__ import annotations
 
@@ -14,9 +17,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_dist import check, raise_on, stream_ptr
+from repro_torch.kernels.ivf_scan import check_lists, check_luts, launch_scan
 
 K4 = 16          # centroids per 4-bit sub-codebook
-launches = {"pq4_adc": 0}
+launches = {"pq4_adc": 0, "pq4_ivf_scan": 0}
 # the C launcher's signature: pointers, ints, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
@@ -53,3 +57,15 @@ def pq4_adc(lut: torch.Tensor, packed: torch.Tensor,
     raise_on(err, "pq4_adc")
     launches["pq4_adc"] += 1
     return out
+
+
+def pq4_ivf_scan(luts: torch.Tensor, list_codes: torch.Tensor,
+                 list_ids: torch.Tensor, probe_ids: torch.Tensor, L: int):
+    check_luts(luts, probe_ids, K4)
+    check_lists(list_codes, list_ids, probe_ids, torch.uint8, L, luts)
+    _, Pl, m, _ = luts.shape
+    if 2 * list_codes.shape[2] != m:
+        raise ValueError(f"list_codes {tuple(list_codes.shape)} must hold "
+                         f"m/2={m // 2} bytes a slot")
+    return launch_scan(launches, "pq4_ivf_scan", "pq4_ivf_scan_u8", [luts],
+                       list_codes, list_ids, probe_ids, L, [Pl, m])

@@ -3,8 +3,9 @@
 Each function is the semantic specification of its CUDA kernel, mirroring
 the JAX package's `repro/kernels/ref.py` (`batch_dist_ref`,
 `gather_dist_ref`, `sq_gather_dist_ref`, `pq_adc_ref`, `pq4_adc_ref`,
-`bin_dist_ref`, `sorted_block_ref` and the
-`fused_expand{,_sq,_pq,_pq4,_bin}_ref` family). The CPU path of
+`bin_dist_ref`, `sorted_block_ref`, the
+`fused_expand{,_sq,_pq,_pq4,_bin}_ref` family and the list scans
+`{,pq4_,bin_}ivf_scan_ref`). The CPU path of
 `kernels/ops.py` runs these; on the card they serve only as the yardstick
 the kernels are held against.
 
@@ -15,6 +16,8 @@ popcount do not care about the sign bit.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.build import sortable_keys
 
 
 def batch_dist_ref(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
@@ -182,3 +185,95 @@ def fused_expand_bin_ref(qcodes: torch.Tensor, codes: torch.Tensor,
                          ids: torch.Tensor, L: int, n_beam: int = 1):
     """bin twin: bin_dist_ref then the sorted-block epilogue."""
     return sorted_block_ref(bin_dist_ref(qcodes, codes, ids), ids, L, n_beam)
+
+
+# --------------------------------------------------------------------------
+# IVF list scans: every slot of each probed list scored, -1 slots +inf, then
+# each list's own L best in the stable order (distance, then slot)
+# --------------------------------------------------------------------------
+_SCAN_ELEMS = 1 << 24     # gathered code elements per chunk of queries
+
+
+def _list_top(d: torch.Tensor, ids: torch.Tensor, L: int):
+    """(q, P, max_len) distances and slot ids -> each list's L smallest,
+    ascending, ties to the lower slot and -0.0 before +0.0 (lax.top_k's
+    order), ids -1 where the distance is not finite. A top-L over the
+    distinct (distance, slot) keys, so no tie is left to the device."""
+    d = torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
+    keys, _ = torch.topk(sortable_keys(d), L, dim=-1, largest=False,
+                         sorted=True)
+    pos = keys & 0xFFFFFFFF
+    vals = torch.gather(d, -1, pos)
+    out = torch.gather(ids, -1, pos)
+    return vals, torch.where(torch.isfinite(vals), out, torch.full_like(out, -1))
+
+
+def _by_query_chunks(score, probe_ids: torch.Tensor, width: int, L: int):
+    """score(s, e) -> (dists, ids) of queries s..e, over as many queries at
+    a time as keep the gathered (q, P, max_len, width) block near
+    _SCAN_ELEMS elements (a whole Deep1M batch would be gigabytes)."""
+    Q, P = probe_ids.shape
+    if Q == 0:
+        dev = probe_ids.device
+        return (torch.empty((0, P, L), dtype=torch.float32, device=dev),
+                torch.empty((0, P, L), dtype=torch.int32, device=dev))
+    step = max(1, _SCAN_ELEMS // max(1, P * width))
+    parts = [score(s, min(s + step, Q)) for s in range(0, Q, step)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _adc_lists(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(q, Pl, m, K) tables, (q, P, max_len, m) int64 codes -> (q, P,
+    max_len) ADC sums over j = 0 .. m-1 in order, as the CUDA kernel sums
+    (see pq4_adc_ref)."""
+    q, P, N, m = codes.shape
+    t = luts.expand(q, P, m, luts.shape[-1])[:, :, None]
+    g = torch.gather(t.expand(q, P, N, m, t.shape[-1]), 4,
+                     codes[..., None])[..., 0]
+    out = g[..., 0]
+    for j in range(1, m):
+        out = out + g[..., j]
+    return out
+
+
+def ivf_scan_ref(luts: torch.Tensor, list_codes: torch.Tensor,
+                 list_ids: torch.Tensor, probe_ids: torch.Tensor, L: int):
+    """(Q, Pl, m, K) tables (Pl = P, or 1 for probe-independent tables),
+    (nlist, max_len, m) u8 codes, (nlist, max_len) ids, (Q, P) probes ->
+    each probed list's top-L: dists (Q, P, L) ascending, ids (Q, P, L),
+    -1 where the distance is +inf."""
+    N, m = list_codes.shape[1:]
+
+    def score(s, e):
+        pid = probe_ids[s:e].long()
+        d = _adc_lists(luts[s:e], list_codes[pid].long())
+        return _list_top(d, list_ids[pid], L)
+    return _by_query_chunks(score, probe_ids, N * m, L)
+
+
+def pq4_ivf_scan_ref(luts: torch.Tensor, list_codes: torch.Tensor,
+                     list_ids: torch.Tensor, probe_ids: torch.Tensor, L: int):
+    """PQ4 twin of ivf_scan_ref: (Q, Pl, m, 16) tables, (nlist, max_len,
+    m/2) nibble-packed codes, unpacked and scanned identically."""
+    N, mh = list_codes.shape[1:]
+
+    def score(s, e):
+        pid = probe_ids[s:e].long()
+        d = _adc_lists(luts[s:e], _unpack_nibbles_ref(list_codes[pid]))
+        return _list_top(d, list_ids[pid], L)
+    return _by_query_chunks(score, probe_ids, N * 2 * mh, L)
+
+
+def bin_ivf_scan_ref(qcodes: torch.Tensor, list_codes: torch.Tensor,
+                     list_ids: torch.Tensor, probe_ids: torch.Tensor, L: int):
+    """Hamming twin of ivf_scan_ref: (Q, nw) int32 query sign words,
+    (nlist, max_len, nw) int32 list words; XOR + popcount, exact."""
+    N, nw = list_codes.shape[1:]
+
+    def score(s, e):
+        pid = probe_ids[s:e].long()
+        x = torch.bitwise_xor(list_codes[pid], qcodes[s:e, None, None, :])
+        d = _popcount32(x).sum(-1).float()
+        return _list_top(d, list_ids[pid], L)
+    return _by_query_chunks(score, probe_ids, N * nw, L)

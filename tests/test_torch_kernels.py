@@ -159,7 +159,15 @@ def test_sorted_block_epilogue_matches_reference():
 
 KERNELS = ("gather_dist", "fused_expand", "batch_dist", "sq_gather_dist",
            "fused_expand_sq", "pq_adc", "fused_expand_pq", "pq4_adc",
-           "fused_expand_pq4", "bin_dist", "fused_expand_bin")
+           "fused_expand_pq4", "bin_dist", "fused_expand_bin", "ivf_scan",
+           "pq4_ivf_scan", "bin_ivf_scan")
+
+
+def _lists(r, Q, P, nlist, max_len, n):
+    """IVF list ids (-1 padded) and (Q, P) probes for the list scans."""
+    ids = r.integers(-1, n, size=(nlist, max_len)).astype(np.int32)
+    probes = r.integers(0, nlist, size=(Q, P)).astype(np.int32)
+    return ids, probes
 
 
 def _quant_case(seed, Q, n, d, m):
@@ -194,6 +202,13 @@ def test_cpu_wrappers_launch_nothing():
     tops.fused_expand_pq4(lut4, packed, ids, L=4, n_beam=2)
     tops.bin_dist(qw, words, ids)
     tops.fused_expand_bin(qw, words, ids, L=4, n_beam=2)
+    lids, probes = (_t(a) for a in _lists(np.random.default_rng(1), 3, 2, 5,
+                                          8, 40))
+    tops.ivf_scan(lut[:, None], pcodes[:40].reshape(5, 8, 16), lids, probes,
+                  L=4)
+    tops.pq4_ivf_scan(lut4[:, None], packed[:40].reshape(5, 8, 8), lids,
+                      probes, L=4)
+    tops.bin_ivf_scan(qw, words[:40].reshape(5, 8, 3), lids, probes, L=4)
     assert tops.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
@@ -251,6 +266,22 @@ def test_cuda_kernels_match_plain(cuda, metric):
         _close(out[0], exp[0])
         _close(out[2], exp[2])
         assert torch.equal(out[1], exp[1]) and torch.equal(out[3], exp[3])
+    lids, probes = (torch.as_tensor(a, device=cuda) for a in _lists(
+        np.random.default_rng(5), 64, 4, 100, 50, 5000))
+    for out, exp in (
+            (tops.ivf_scan(lut[:, None], pcodes.reshape(100, 50, 16), lids,
+                           probes, L=20),
+             tref.ivf_scan_ref(lut[:, None], pcodes.reshape(100, 50, 16),
+                               lids, probes, 20)),
+            (tops.pq4_ivf_scan(lut4[:, None], packed.reshape(100, 50, 8),
+                               lids, probes, L=20),
+             tref.pq4_ivf_scan_ref(lut4[:, None], packed.reshape(100, 50, 8),
+                                   lids, probes, 20)),
+            (tops.bin_ivf_scan(qw, words.reshape(100, 50, 3), lids, probes,
+                               L=20),
+             tref.bin_ivf_scan_ref(qw, words.reshape(100, 50, 3), lids,
+                                   probes, 20))):
+        assert torch.equal(out[0], exp[0]) and torch.equal(out[1], exp[1])
     after = tops.launch_counts()
     assert set(after) == set(KERNELS)
     assert all(after[k] == before[k] + 1 for k in after)

@@ -140,15 +140,21 @@ def test_cosine_matches_reference(deep_index, deep_ds):
 
 @pytest.mark.parametrize("family", ["ivf", "pq4", "bin"])
 def test_unported_families_raise(family):
-    """Only the IVF family is still to port; the pq4 and bin kinds build
-    and search a tiny set."""
-    from repro_torch.core.types import (BuildConfig, IndexConfig,
+    """Every family is ported now: the IVF index and the pq4 and bin
+    kinds build and search a tiny set."""
+    from repro_torch.core.types import (BuildConfig, IndexConfig, IVFConfig,
                                         QuantConfig, SearchConfig)
-    if family == "ivf":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            KBest(IndexConfig(dim=8, index_type="ivf"), device="cpu")
-        return
     x = np.random.default_rng(0).normal(size=(200, 8)).astype(np.float32)
+    if family == "ivf":
+        cfg = IndexConfig(dim=8, index_type="ivf",
+                          ivf=IVFConfig(nlist=4, list_pad=8),
+                          search=SearchConfig(L=16, k=5, nprobe=4),
+                          quant=QuantConfig(kind="pq", pq_m=4,
+                                            kmeans_iters=2))
+        d, i = KBest(cfg, device="cpu").add(x).search(x[:6])
+        assert i.shape == (6, 5) and torch.isfinite(d).all()
+        assert bool((i[:, 0] == torch.arange(6)).all())
+        return
     cfg = IndexConfig(dim=8, build=BuildConfig(M=8, knn_k=12, builder="brute"),
                       search=SearchConfig(L=16, k=5),
                       quant=QuantConfig(kind=family, pq_m=4, kmeans_iters=2))
