@@ -7,8 +7,10 @@ commits' kernels side by side.
 Builds DIR's kernels (into DIR's own build directory) and times each one
 DIR has, at the shape of `chip_smoke.py`'s kernels line, on the inputs of
 its phase 2 (`kernel_inputs`, `kernel_cases`), with phase 2's two clocks:
-`ms`, one call with its launch, and `device_ms`, the device time per call
-from a replayed CUDA graph over the case's input sets. Prints one JSON
+`ms`, one call with its launch (the median of ten, from CUDA events), and
+`device_ms`, the device time per call from a replayed CUDA graph over the
+case's input sets (`batch_dist`: the event time, as its launch is a
+negligible share of a 1000 x 1M call). Prints one JSON
 line. Compare two commits within one machine, in turns (parent, change,
 change, parent), each run in its own process:
 
@@ -46,10 +48,12 @@ def main() -> int:
     have = ops.launch_counts()
     out = {}
     for c in cs.kernel_cases(cs.kernel_inputs(db)):
-        if c.main and c.name in have and c.name != "batch_dist":
-            out[c.name] = dict(
-                ms=cs.cuda_ms(lambda: c.kern(*c.sets[0])),
-                device_ms=cs.graph_ms(c.kern, c.sets))
+        if c.main and c.name in have:
+            ms = cs.cuda_ms(lambda: c.kern(*c.sets[0]))
+            # batch_dist's launch is a negligible share of its call: CUDA
+            # events alone, as in chip_smoke.py
+            out[c.name] = dict(ms=ms, device_ms=ms if c.name == "batch_dist"
+                               else cs.graph_ms(c.kern, c.sets))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -8,7 +8,8 @@ Phases:
      every kernel in src/repro_torch/kernels/csrc;
   2. each kernel against its plain torch version on the card, at the main
      path's shapes, with its time, its bound, the plain version's time and
-     a library yardstick;
+     a library yardstick (the bin list scan also on a tie storm and at
+     L = max_len, exactly);
   3. the 50k anchor: deep_like at n=50,000 against the committed
      BENCH_traverse.json row (W=4, early termination on);
   4. the main path at Deep1M scale: KBest.add over 1,000,000 deep_like
@@ -303,6 +304,9 @@ def kernel_inputs(db) -> dict:
         dtype=torch.int32).to(torch.uint8), bin=torch.randint(
         -2 ** 31, 2 ** 31, (nlist, max_len, nw), generator=g, device=dev,
         dtype=torch.int64).to(torch.int32))
+    # a tie storm: every slot of a list holds that list's first code
+    lists["bin_storm"] = lists["bin"][:, :1].expand(-1, max_len,
+                                                    -1).contiguous()
     return dict(db=db, q=q, codes=codes, scale=scale, zero=zero,
                 pcodes=pcodes, K=K, g=g, p4codes=p4codes, signs=words[:n],
                 qsigns=words[n:].contiguous(), lists=lists)
@@ -526,15 +530,21 @@ def kernel_cases(inp: dict) -> "list[Case]":
                 lambda P=P, Pl=Pl, m_=m_, K_=K_: (
                     torch.randn((Q, Pl, m_, K_), generator=g, device=dev),
                     probes(P)), scan=True)
-    add("bin_ivf_scan", f"Q={Q} P=96 L=768 nw={nw} nlist={nlist} "
-        f"max_len={max_len}", True, False,
-        lambda pr: ops.bin_ivf_scan(qsigns, lists["bin"], lists["ids"], pr,
-                                    L=768),
-        lambda pr: ref.bin_ivf_scan_ref(qsigns, lists["bin"], lists["ids"],
-                                        pr, 768),
-        lambda pr: (scan_bytes(lists, lists["bin"], pr, 768, Q * nw * 4),
-                    3.0 * nw * int((lists["ids"][pr.long()] >= 0).sum())),
-        lambda: (probes(96),), exact=True, scan=True)
+    # the bin scan at the ivf_bin preset's shape (in the kernels line), on
+    # a tie storm (every distance of a list equal), and at L = max_len
+    for P, L, words, note in ((96, 768, "bin", ""),
+                              (96, 768, "bin_storm", " tie storm"),
+                              (8, max_len, "bin", "")):
+        add("bin_ivf_scan", f"Q={Q} P={P} L={L} nw={nw} nlist={nlist} "
+            f"max_len={max_len}{note}", not note and L == 768, False,
+            lambda pr, L=L, w=words: ops.bin_ivf_scan(
+                qsigns, lists[w], lists["ids"], pr, L=L),
+            lambda pr, L=L, w=words: ref.bin_ivf_scan_ref(
+                qsigns, lists[w], lists["ids"], pr, L),
+            lambda pr, L=L, w=words: (
+                scan_bytes(lists, lists[w], pr, L, Q * nw * 4),
+                3.0 * nw * int((lists["ids"][pr.long()] >= 0).sum())),
+            lambda P=P: (probes(P),), exact=True, scan=True)
 
     # ---- batch_dist: Q x n x d, both metrics; a 4 GB output a call ----
     for mt in ("ip", "l2"):
@@ -623,10 +633,12 @@ def phase_kernels(db):
             f"{plain_dev} ({t['plain_ms']:.4f}), library "
             + ("none" if lib is None else f"{lib[0]} {lib[1]:.4f} ms")
             + f", max err {err:.2e}{note}")
+        row = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None if lib is None else lib[1],
+                   shape=c.shape, sets=len(c.sets), **t)
+        REPORT.setdefault("kernel_cases", []).append(dict(name=c.name, **row))
         if c.main:
-            rows[c.name] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=None if lib is None else lib[1],
-                                shape=c.shape, sets=len(c.sets), **t)
+            rows[c.name] = row
     torch.cuda.synchronize()
     return rows
 
@@ -754,6 +766,9 @@ def phase_main():
     stages = {k: round(v, 3) for k, v in idx.build_times.items()}
     log(f"[main] build {build_s:.1f} s, peak device memory {peak_gb:.2f} GiB")
     log(f"[main] build stages (s): {json.dumps(stages)}")
+    log(f"[main] exact kNN stage: {stages['knn']:.2f} s on "
+        f"{ops.launch_counts()['batch_dist']} batch_dist launches (ground "
+        f"truth included)")
     REPORT["main"] = dict(n=N_MAIN, queries=Q_MAIN, data_s=data_s,
                           build_s=build_s, peak_gib=peak_gb, stages=stages,
                           rows=[])
@@ -1276,7 +1291,7 @@ def main() -> int:
                              "src/repro/kernels/bin_hamming.py:99", bcounts),
         "pq4_ivf_scan": (csrc + "ivf_scan.cu",
                          "src/repro/kernels/pq4_scan.py:119", icounts),
-        "bin_ivf_scan": (csrc + "ivf_scan.cu",
+        "bin_ivf_scan": (csrc + "bin_ivf_scan.cu",
                          "src/repro/kernels/bin_hamming.py:149", icounts),
         "ivf_scan": (csrc + "ivf_scan.cu",
                      "src/repro/kernels/ivf_scan.py:62", icounts)}
@@ -1293,6 +1308,10 @@ def main() -> int:
     REPORT["excess_ms"] = {name: ms for ms, name in excess}
     log("[kernels] launches x (device ms - bound ms): " + ", ".join(
         f"{name} {ms:.1f}" for ms, name in excess))
+    log(f"[summary] exact kNN stage {REPORT['main']['stages']['knn']:.2f} s"
+        f", ivf_bin QPS {REPORT['ivf']['ivf_bin']['row']['qps']:.0f} (recall@10"
+        f" {REPORT['ivf']['ivf_bin']['row']['recall']:.4f}), graph none W=4 "
+        f"recall@10 {none_rec[(4, 'kernel')]:.4f}")
     REPORT["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

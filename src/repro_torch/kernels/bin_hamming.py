@@ -1,5 +1,5 @@
 """Wrappers of the `bin_dist` CUDA kernel (csrc/bin_hamming.cu) and the
-`bin_ivf_scan` one (csrc/ivf_scan.cu).
+`bin_ivf_scan` one (csrc/bin_ivf_scan.cu).
 
 The counterparts of the JAX package's Pallas `bin_dist` and
 `bin_ivf_scan` (src/repro/kernels/bin_hamming.py). `bin_dist`: (Q, nw)
@@ -67,4 +67,4 @@ def bin_ivf_scan(qcodes: torch.Tensor, list_codes: torch.Tensor,
                          f"nw={qcodes.shape[1]} words a slot")
     return launch_scan(launches, "bin_ivf_scan", "bin_ivf_scan_u32",
                        [qcodes], list_codes, list_ids, probe_ids, L,
-                       [qcodes.shape[1]])
+                       [qcodes.shape[1]], lib="bin_ivf_scan")

@@ -1,38 +1,37 @@
-// ivf_scan, pq4_ivf_scan, bin_ivf_scan: the IVF list scans. For each
+// ivf_scan, pq4_ivf_scan: the IVF list scans over PQ codes. For each
 // (query, probe) pair, every slot of inverted list probe_ids[q, p] is
 // scored, slots whose id is -1 count as +inf, and the list is cut to its
 // own L best in the stable order (distance, then slot; -0.0 before +0.0),
-// ids -1 where the distance is not finite.
+// ids -1 where the distance is not finite. (The Hamming scan has a kernel
+// of its own, bin_ivf_scan.cu.)
 //
-// Replaces the Pallas kernels `ivf_scan` (src/repro/kernels/ivf_scan.py),
-// `pq4_ivf_scan` (src/repro/kernels/pq4_scan.py) and `bin_ivf_scan`
-// (src/repro/kernels/bin_hamming.py); their semantic spec is
-// `ivf_scan_ref`, `pq4_ivf_scan_ref` and `bin_ivf_scan_ref` in
-// src/repro/kernels/ref.py. The TPU's one-hot MXU product is its form of
-// a table read and is not carried over: a slot's distance is the shared
-// per-candidate code of distances.cuh (thread_adc, thread_adc4,
-// thread_hamming), summed over j = 0 .. m-1 in order.
+// Replaces the Pallas kernels `ivf_scan` (src/repro/kernels/ivf_scan.py)
+// and `pq4_ivf_scan` (src/repro/kernels/pq4_scan.py); their semantic spec
+// is `ivf_scan_ref` and `pq4_ivf_scan_ref` in src/repro/kernels/ref.py.
+// The TPU's one-hot MXU product is its form of a table read and is not
+// carried over: a slot's distance is the shared per-candidate code of
+// distances.cuh (thread_adc, thread_adc4), summed over j = 0 .. m-1 in
+// order.
 //
 // Bound on this card: bytes. The probed lists' ids and code rows (16 B a
-// slot for PQ8 at m=16 and for PQ4 at m=32, 12 B for 96 sign bits), the
-// query's table (16 KB for PQ8 at m=16, 2 KB for PQ4 at m=32) and the
-// (Q, P, L) outputs; a batch of 1,000 queries probes most lists, so a
-// call reads each list about P times over from L2.
+// slot for PQ8 at m=16 and for PQ4 at m=32), the query's table (16 KB for
+// PQ8 at m=16, 2 KB for PQ4 at m=32) and the (Q, P, L) outputs; a batch
+// of 1,000 queries probes most lists, so a call reads each list about P
+// times over from L2.
 //
 // Design: one block per (query, probe), one functor per code kind (as
 // traverse_step.cu). The functor stages the query's table (its p-th one
-// when Pl = P) or its sign words in shared memory. The top-L is a radix
-// select, not a sort of the list, because max_len follows the data (the
-// longest list, padded) and may exceed what a block can sort: every
-// slot's distance is mapped to an order-preserving 32-bit key, kept in
-// shared memory when max_len fits there (recomputed on each pass
-// otherwise), four 8-bit histogram passes find the key T of the L-th
-// smallest, one ordered pass takes the keys below T and the first slots
-// (in slot order) equal to T, and a bitonic sort of those (key, slot)
-// pairs, all distinct, gives the stable order. L above kMaxSort is done
-// in rounds of kMaxSort, each selecting above the last round's largest
-// pair. So the result equals the stable sort for any max_len and any
-// L <= max_len, tie storms of Hamming distances included.
+// when Pl = P) in shared memory. The top-L is a radix select, not a sort
+// of the list, because max_len follows the data (the longest list,
+// padded) and may exceed what a block can sort: every slot's distance is
+// mapped to an order-preserving 32-bit key, kept in shared memory when
+// max_len fits there (recomputed on each pass otherwise), four 8-bit
+// histogram passes find the key T of the L-th smallest, one ordered pass
+// takes the keys below T and the first slots (in slot order) equal to T,
+// and a bitonic sort of those (key, slot) pairs, all distinct, gives the
+// stable order. L above kMaxSort is done in rounds of kMaxSort, each
+// selecting above the last round's largest pair. So the result equals the
+// stable sort for any max_len and any L <= max_len.
 #include <stdint.h>
 
 #include "distances.cuh"
@@ -82,21 +81,6 @@ struct Pq4Scan {
   }
   __device__ float dist(const float* ex, int row) const {
     return kbest::thread_adc4(codes, row, ex, m, vec8 != 0);
-  }
-};
-
-struct BinScan {
-  const unsigned int* q;        // (Q, nw)
-  const unsigned int* codes;    // (nlist, max_len, nw)
-  int nw;
-  __device__ void stage(float* ex, int qi, int, int) const {
-    unsigned int* qs = reinterpret_cast<unsigned int*>(ex);
-    for (int k = threadIdx.x; k < nw; k += blockDim.x)
-      qs[k] = q[(size_t)qi * nw + k];
-  }
-  __device__ float dist(const float* ex, int row) const {
-    return kbest::thread_hamming(
-        codes, row, reinterpret_cast<const unsigned int*>(ex), nw);
   }
 };
 
@@ -329,16 +313,5 @@ extern "C" int pq4_ivf_scan_u8(const void* luts, const void* codes,
                static_cast<const unsigned char*>(codes), m, Pl != 1 ? 1 : 0,
                vec8};
   return launch(dist, m * 16, list_ids, probe_ids, out_d, out_i, Q, P, nlist,
-                max_len, L, stream);
-}
-
-extern "C" int bin_ivf_scan_u32(const void* qcodes, const void* codes,
-                                const void* list_ids, const void* probe_ids,
-                                void* out_d, void* out_i, int Q, int P,
-                                int nlist, int max_len, int L, int nw,
-                                void* stream) {
-  BinScan dist{static_cast<const unsigned int*>(qcodes),
-               static_cast<const unsigned int*>(codes), nw};
-  return launch(dist, nw, list_ids, probe_ids, out_d, out_i, Q, P, nlist,
                 max_len, L, stream);
 }

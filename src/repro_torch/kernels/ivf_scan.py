@@ -62,10 +62,12 @@ def check_luts(luts: torch.Tensor, probe_ids: torch.Tensor,
 
 def launch_scan(counts: dict, kernel: str, symbol: str, lead: list,
                 list_codes: torch.Tensor, list_ids: torch.Tensor,
-                probe_ids: torch.Tensor, L: int, tail: list):
-    """Allocate (Q, P, L) dists and ids, call `symbol` with the pointers
-    `lead`, the lists, probes and outputs, (Q, P, nlist, max_len, L) and
-    the ints `tail`, and count the launch in `counts[kernel]`."""
+                probe_ids: torch.Tensor, L: int, tail: list,
+                lib: str = "ivf_scan"):
+    """Allocate (Q, P, L) dists and ids, call `symbol` of lib<lib>.so with
+    the pointers `lead`, the lists, probes and outputs, (Q, P, nlist,
+    max_len, L) and the ints `tail`, and count the launch in
+    `counts[kernel]`."""
     Q, P = probe_ids.shape
     nlist, max_len = list_ids.shape
     dev = probe_ids.device
@@ -76,7 +78,7 @@ def launch_scan(counts: dict, kernel: str, symbol: str, lead: list,
     ptrs = [ctypes.c_void_p(t.data_ptr())
             for t in (*lead, list_codes, list_ids, probe_ids, *outs)]
     ints = [ctypes.c_int(v) for v in (Q, P, nlist, max_len, L, *tail)]
-    fn = _build.function("ivf_scan", symbol,
+    fn = _build.function(lib, symbol,
                          [ctypes.c_void_p] * len(ptrs)
                          + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     raise_on(fn(*ptrs, *ints, stream_ptr(probe_ids)), kernel)

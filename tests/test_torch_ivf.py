@@ -455,3 +455,40 @@ def test_cuda_scans_match_plain(cuda, max_len, L):
     assert after["ivf_scan"] == before["ivf_scan"] + 2
     assert after["pq4_ivf_scan"] == before["pq4_ivf_scan"] + 2
     assert after["bin_ivf_scan"] == before["bin_ivf_scan"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_len", [2176, 70_000, 120_000])
+@pytest.mark.parametrize("nw", [1, 3, 8, 32])
+def test_cuda_bin_scan_counting_sort(cuda, nw, max_len):
+    """The counting-sort bin scan equals its plain version exactly at L in
+    {1, 768, max_len}: ragged lists with holes, a list all -1, a list whose
+    slots all hold one code (every distance tied, so the order is the slot
+    order), 16-bit values kept in shared memory (2,176 and 70,000 slots)
+    or recomputed (120,000); probes outside [0, nlist) give whole rows of
+    (+inf, -1)."""
+    r = np.random.default_rng(nw * 7 + max_len)
+    nlist, Q, P = 6, 5, 3
+    ids = _lists(r, nlist, max_len, 1_000_000)     # list 0 all -1
+    ids[1] = r.choice(1_000_000, size=max_len, replace=False)
+    words = r.integers(-2 ** 31, 2 ** 31, size=(nlist, max_len, nw),
+                       dtype=np.int64).astype(np.int32)
+    words[1] = words[1, 0]                         # the tie storm
+    pr = _probes(r, Q, P, nlist)
+    pr[1:, 0] = 1
+    qw = r.integers(-2 ** 31, 2 ** 31, size=(Q, nw),
+                    dtype=np.int64).astype(np.int32)
+    qw, words, ids, pr = (torch.as_tensor(a, device=cuda)
+                          for a in (qw, words, ids, pr))
+    before = tops.launch_counts()["bin_ivf_scan"]
+    for L in (1, 768, max_len):
+        out = tops.bin_ivf_scan(qw, words, ids, pr, L=L)
+        exp = tref.bin_ivf_scan_ref(qw, words, ids, pr, L)
+        assert torch.equal(out[0], exp[0]) and torch.equal(out[1], exp[1]), L
+    bad = pr.clone()
+    bad[:, 1], bad[:, 2] = -1, nlist
+    d, i = tops.bin_ivf_scan(qw, words, ids, bad, L=768)
+    exp = tref.bin_ivf_scan_ref(qw, words, ids, pr[:, :1].contiguous(), 768)
+    assert torch.equal(d[:, :1], exp[0]) and torch.equal(i[:, :1], exp[1])
+    assert torch.isinf(d[:, 1:]).all() and bool((i[:, 1:] == -1).all())
+    assert tops.launch_counts()["bin_ivf_scan"] == before + 4

@@ -9,8 +9,9 @@ codes under l2, PQ4 under ip, PQ4 with u8 tables under l2, bin under ip
 (re-rank of its rescore_factor * k overfetch) and PQ with a set
 `QuantConfig.rerank`. The port takes the whole state over through both
 routes — `convert.from_reference_arrays` and `KBest.load` of a reference
-save — and must return the same ids and all four SearchStats fields
-(n_hops the lists probed, n_dist the codes scanned plus the exact
+save — and must return the same ids (tie-aware: tests/
+test_torch_parity.py) and all four SearchStats fields (n_hops the lists
+probed, n_dist the codes scanned plus the exact
 re-rank, no early termination, iters 0) for dist_impl in {ref, kernel};
 distances agree to the kernels' tolerance (rtol=3e-5, atol=3e-4). On the
 CPU the port's "kernel" path runs the kernels' plain versions, the
@@ -42,12 +43,12 @@ from repro_torch.core import ivf as tivf
 from repro_torch.core import quantize as tqz
 from repro_torch.core.convert import from_reference_arrays
 from repro_torch.core.index import IVF_ARRAYS, KBest
+from test_torch_parity import assert_same_ranking
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them
 torch.set_num_threads(1)
 
-TOL = dict(rtol=3e-5, atol=3e-4)
 # name: (dataset fixture, QuantConfig kwargs, residual, SearchConfig kwargs)
 CASES = {
     "pq-ip": ("deep_ds", dict(kind="pq", pq_m=16), True, {}),
@@ -110,8 +111,7 @@ def _hand_ref_tables(monkeypatch, ref):
 
 def _same(ref_out, port_out):
     (d0, i0, s0), (d1, i1, s1) = ref_out, port_out
-    assert np.array_equal(np.asarray(i0), i1.numpy())
-    np.testing.assert_allclose(d1.numpy(), np.asarray(d0), **TOL)
+    assert_same_ranking(d1.numpy(), i1.numpy(), d0, i0)
     for name in ("n_hops", "n_dist", "early_terminated", "iters"):
         assert np.array_equal(np.asarray(getattr(s0, name)),
                               getattr(s1, name).numpy()), name

@@ -287,6 +287,41 @@ def test_cuda_kernels_match_plain(cuda, metric):
     assert all(after[k] == before[k] + 1 for k in after)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [1, 3, 96, 97, 128, 960])
+def test_cuda_batch_dist_ragged(cuda, metric, d):
+    """The tiled product at ragged Q, B (tile edges of 128) and d (d % 4
+    != 0 takes 4-byte loads; d above 96 runs in chunks) against its plain
+    version."""
+    r = np.random.default_rng(d)
+    q, x = (torch.as_tensor(r.normal(size=(1000, d)).astype(np.float32),
+                            device=cuda) for _ in range(2))
+    before = tops.launch_counts()["batch_dist"]
+    for Q in (1, 127, 129, 1000):
+        for B in (1, 127, 129, 1000):
+            _close(tops.batch_dist(q[:Q], x[:B], metric=metric),
+                   tref.batch_dist_ref(q[:Q], x[:B], metric))
+    assert tops.launch_counts()["batch_dist"] == before + 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,B,d,offset", [
+    (1000, 100_000, 96, 0),     # more tiles than the grid: query tiles change
+    (129, 50_000, 96, 0),       # two query tiles, each kept while B tiles pass
+    (300, 20_000, 960, 0),      # d in chunks over many tiles
+    (1000, 30_000, 96, 1)])     # rows not 16-byte aligned: the 4-byte path
+def test_cuda_batch_dist_many_tiles(cuda, Q, B, d, offset):
+    r = np.random.default_rng(Q + B + d)
+    q = torch.as_tensor(r.normal(size=(Q, d)).astype(np.float32), device=cuda)
+    flat = torch.as_tensor(r.normal(size=B * d + offset).astype(np.float32),
+                           device=cuda)
+    x = flat[offset:].view(B, d)
+    for metric in ("l2", "ip"):
+        _close(tops.batch_dist(q, x, metric=metric),
+               tref.batch_dist_ref(q, x, metric))
+
+
 # --------------------------------------------------------------------------
 # import isolation
 # --------------------------------------------------------------------------

@@ -9,8 +9,9 @@ db, graph, entry and order, then `_train_quant`): `pq4` and `pq4+u8lut`
 widens the queue past L=64). The port takes the whole state, codes,
 codebooks and rotation included, over through both routes —
 `convert.from_reference_arrays` and `KBest.load` of a reference save —
-and must return the same ids and all four SearchStats fields (n_dist
-counting the exact re-rank) for W ∈ {1, 4} × dist_impl ∈ {ref, kernel}.
+and must return the same ids (tie-aware: tests/test_torch_parity.py)
+and all four SearchStats fields (n_dist counting the exact re-rank) for
+W ∈ {1, 4} × dist_impl ∈ {ref, kernel}.
 Distances agree to the kernels' tolerance (rtol=3e-5, atol=3e-4). On CPU
 the port's "kernel" path runs the kernels' plain versions, the
 reference's runs its Pallas kernels in interpret mode. The bin search
@@ -43,12 +44,12 @@ from repro_torch.core import search as search_mod
 from repro_torch.core.convert import from_reference_arrays
 from repro_torch.core.index import KBest
 from repro_torch.core.types import SearchConfig
+from test_torch_parity import assert_same_ranking
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them
 torch.set_num_threads(1)
 
-TOL = dict(rtol=3e-5, atol=3e-4)
 QUANTS = {"pq4": dict(kind="pq4", pq_m=16, kmeans_iters=4),
           "pq4+u8lut": dict(kind="pq4", pq_m=16, kmeans_iters=4,
                             pq4_lut_u8=True),
@@ -102,8 +103,7 @@ def _hand_ref_tables(monkeypatch, ref):
 
 def _same(ref_out, port_out):
     (d0, i0, s0), (d1, i1, s1) = ref_out, port_out
-    assert np.array_equal(np.asarray(i0), i1.numpy())
-    np.testing.assert_allclose(d1.numpy(), np.asarray(d0), **TOL)
+    assert_same_ranking(d1.numpy(), i1.numpy(), d0, i0)
     for name in ("n_hops", "n_dist", "early_terminated", "iters"):
         assert np.array_equal(np.asarray(getattr(s0, name)),
                               getattr(s1, name).numpy()), name

@@ -6,8 +6,9 @@ quantizer attached the way the reference's tuner does it (a clone sharing
 db, graph, entry and order, then `_train_quant`). The port takes the whole
 state, codes and codebooks included, over through both routes —
 `convert.from_reference_arrays` and `KBest.load` of a reference save — and
-must return the same ids and all four SearchStats fields (n_dist counting
-the exact re-rank) for W ∈ {1, 4} × dist_impl ∈ {ref, kernel}. Distances
+must return the same ids (tie-aware: tests/test_torch_parity.py) and
+all four SearchStats fields (n_dist counting the exact re-rank) for
+W ∈ {1, 4} × dist_impl ∈ {ref, kernel}. Distances
 agree to the kernels' tolerance (rtol=3e-5, atol=3e-4). On CPU the port's
 "kernel" path runs the kernels' plain versions, the reference's runs its
 Pallas kernels in interpret mode.
@@ -26,12 +27,12 @@ from repro_torch.core import quantize as tqz
 from repro_torch.core import search as search_mod
 from repro_torch.core.convert import from_reference_arrays
 from repro_torch.core.index import QUANT_ARRAYS, KBest
+from test_torch_parity import assert_same_ranking
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them
 torch.set_num_threads(1)
 
-TOL = dict(rtol=3e-5, atol=3e-4)
 QUANTS = {"sq": dict(kind="sq"),
           "pq": dict(kind="pq", pq_m=16, kmeans_iters=4)}
 
@@ -71,8 +72,7 @@ def ports(refs):
 
 def _same(ref_out, port_out):
     (d0, i0, s0), (d1, i1, s1) = ref_out, port_out
-    assert np.array_equal(np.asarray(i0), i1.numpy())
-    np.testing.assert_allclose(d1.numpy(), np.asarray(d0), **TOL)
+    assert_same_ranking(d1.numpy(), i1.numpy(), d0, i0)
     for name in ("n_hops", "n_dist", "early_terminated", "iters"):
         assert np.array_equal(np.asarray(getattr(s0, name)),
                               getattr(s1, name).numpy()), name
@@ -175,8 +175,7 @@ def test_k_override_matches_reference(refs, ports, deep_ds, kind, k):
     d0, i0 = refs[kind].search(deep_ds.queries, k=k)
     d1, i1 = ports[kind].search(deep_ds.queries, k=k)
     assert i1.shape == (len(deep_ds.queries), k)
-    assert np.array_equal(np.asarray(i0), i1.numpy())
-    np.testing.assert_allclose(d1.numpy(), np.asarray(d0), **TOL)
+    assert_same_ranking(d1.numpy(), i1.numpy(), d0, i0)
 
 
 @pytest.mark.parametrize("kind", ["sq", "pq"])

@@ -4,8 +4,9 @@ graphs.
 The reference builds the conftest indexes (deep_like and bigann_like,
 n=2,000, 40 queries); the port takes them over through both routes —
 `convert.from_reference_arrays` and `KBest.load` of a reference save —
-and must return the same ids and all four SearchStats fields, over
-W ∈ {1, 2, 4} × {queue, bitmap} × dist_impl ∈ {ref, kernel}. Distances
+and must return the same ids (tie-aware: tests/test_torch_parity.py)
+and all four SearchStats fields, over W ∈ {1, 2, 4} × {queue, bitmap} ×
+dist_impl ∈ {ref, kernel}. Distances
 agree to the kernels' tolerance (rtol=3e-5, atol=3e-4); on CPU the port's
 "kernel" path runs the kernels' plain versions, the reference's runs its
 Pallas kernels in interpret mode.
@@ -20,12 +21,11 @@ from repro.core.index import KBest as RefKBest
 from repro_torch.core.convert import from_reference_arrays
 from repro_torch.core.index import KBest
 from repro_torch.core.types import SearchConfig
+from test_torch_parity import assert_same_ranking
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them
 torch.set_num_threads(1)
-
-TOL = dict(rtol=3e-5, atol=3e-4)
 
 
 def _arrays(ref):
@@ -45,8 +45,7 @@ def port_deep(deep_index):
 
 def _same(ref_out, port_out):
     (d0, i0, s0), (d1, i1, s1) = ref_out, port_out
-    assert np.array_equal(np.asarray(i0), i1.numpy())
-    np.testing.assert_allclose(d1.numpy(), np.asarray(d0), **TOL)
+    assert_same_ranking(d1.numpy(), i1.numpy(), d0, i0)
     for name in ("n_hops", "n_dist", "early_terminated", "iters"):
         assert np.array_equal(np.asarray(getattr(s0, name)),
                               getattr(s1, name).numpy()), name
@@ -121,8 +120,7 @@ def test_k_override_matches_reference(deep_index, port_deep, deep_ds, k):
     d0, i0 = deep_index.search(deep_ds.queries, k=k)
     d1, i1 = port_deep.search(deep_ds.queries, k=k)
     assert i1.shape == (len(deep_ds.queries), k)
-    assert np.array_equal(np.asarray(i0), i1.numpy())
-    np.testing.assert_allclose(d1.numpy(), np.asarray(d0), **TOL)
+    assert_same_ranking(d1.numpy(), i1.numpy(), d0, i0)
 
 
 def test_cosine_matches_reference(deep_index, deep_ds):
