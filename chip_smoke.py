@@ -75,6 +75,10 @@ N_ANCHOR, Q_ANCHOR = 50_000, 100
 MAIN_BUILDER, MAIN_L = "brute", 96
 DEVICE = "cuda"
 ANCHOR = dict(recall=0.957, iters=23)   # BENCH_traverse.json, W=4, ET on
+# The share of a W=4 step's C=96 ids that are valid in the traversal at 1M:
+# phase 4's dists/q over (lockstep iterations x C), 2,662.9 / (42.2 x 96)
+# on the H100; the rest are -1 (visited, duplicate or padding)
+TRAVERSAL_VALID = 0.66
 
 REPORT: dict = {}
 
@@ -357,7 +361,9 @@ def kernel_cases(inp: dict) -> "list[Case]":
     (C=96, L=MAIN_L; fused_expand also at the bigann preset's C=128,
     L=192, fused_expand_bin also at the bin preset's L=320), both metrics
     where a kernel takes one, and batch_dist over the whole db. Ids are
-    random rows with 5% set to -1; the fused steps' ids repeat rows across
+    random rows with 5% set to -1 (34% for a second ip case of
+    fused_expand and fused_expand_sq at C=96: the traversal's share,
+    TRAVERSAL_VALID); the fused steps' ids repeat rows across
     expansions, so exact ties occur (and Hamming distances of random signs
     tie everywhere). The bin kernels must equal their plain versions. Each case holds
     enough argument sets that they gather twice the card's L2 in all. The
@@ -372,16 +378,16 @@ def kernel_cases(inp: dict) -> "list[Case]":
     nw = signs.shape[1]
     cases = []
 
-    def rand_ids(M):
+    def rand_ids(M, invalid=0.05):
         ids = torch.randint(0, n, (Q, M), generator=g, device=dev,
                             dtype=torch.int32)
-        drop = torch.rand((Q, M), generator=g, device=dev) < 0.05
+        drop = torch.rand((Q, M), generator=g, device=dev) < invalid
         return torch.where(drop, torch.full_like(ids, -1), ids)
 
-    def tied_ids(W, M):
+    def tied_ids(W, M, invalid=0.05):
         """C = W*M ids where expansions 1..W-1 repeat ids of expansion 0
         in some slots (bit-identical distances, so exact ties)."""
-        ids = rand_ids(W * M)
+        ids = rand_ids(W * M, invalid)
         for w in range(1, W):
             ids[:, w * M] = ids[:, 0]
             ids[:, w * M + 3] = ids[:, w]
@@ -470,6 +476,27 @@ def kernel_cases(inp: dict) -> "list[Case]":
                                     4.0 * valid(ids) * d),
                 lambda W=W, M=M: (tied_ids(W, M),))
         if C == 96:
+            # the main step again at the share of valid ids the traversal
+            # gives it (TRAVERSAL_VALID), ip: a logged case of its own
+            shape = (f"Q={Q} W={W} M={M} L={L} d={d} n={n} ip valid "
+                     f"{TRAVERSAL_VALID:.0%}")
+            add("fused_expand", shape, False, True,
+                lambda ids, L=L, W=W: ops.fused_expand(
+                    q, db, ids, metric="ip", L=L, n_beam=W),
+                lambda ids, L=L, W=W: ref.fused_expand_ref(
+                    q, db, ids, "ip", L, W),
+                lambda ids, io=io: (valid(ids) * d * 4 + Q * d * 4 + io,
+                                    3.0 * valid(ids) * d),
+                lambda W=W, M=M: (tied_ids(W, M, 1 - TRAVERSAL_VALID),))
+            add("fused_expand_sq", shape, False, True,
+                lambda ids, L=L, W=W: ops.fused_expand_sq(
+                    q, codes, scale, zero, ids, metric="ip", L=L, n_beam=W),
+                lambda ids, L=L, W=W: ref.fused_expand_sq_ref(
+                    q, codes, scale, zero, ids, "ip", L, W),
+                lambda ids, io=io: (valid(ids) * d + Q * d * 4 + d * 8 + io,
+                                    4.0 * valid(ids) * d),
+                lambda W=W, M=M: (tied_ids(W, M, 1 - TRAVERSAL_VALID),))
+        if C == 96:
             add("fused_expand_pq", f"Q={Q} W={W} M={M} L={L} m={m} K={K} "
                 f"n={n}", True, True,
                 lambda t, ids, L=L, W=W: ops.fused_expand_pq(
@@ -556,6 +583,52 @@ def kernel_cases(inp: dict) -> "list[Case]":
     return cases
 
 
+def check_case(c: Case) -> "tuple[float, str]":
+    """Run c's kernel and plain version on its first argument set and hold
+    one to the other (raises if they disagree); returns the max abs error
+    and a note for the log line."""
+    import torch
+    out, exp = c.kern(*c.sets[0]), c.plain(*c.sets[0])
+    torch.cuda.synchronize()
+    note = ""
+    if c.scan:
+        same = float((out[1] == exp[1]).float().mean())
+        if c.exact:
+            assert torch.equal(out[0], exp[0]) and same == 1.0, \
+                f"{c.name} {c.shape}: ids equal on {same:.6f}"
+            err = 0.0
+        else:
+            ok, err = close(out[0], exp[0])
+            assert ok and same >= 0.995, \
+                f"{c.name} {c.shape}: dists {ok} ({err}), ids {same}"
+        note = f", ids equal on {same:.4%} of {exp[1].numel()} slots"
+    elif c.exact:
+        outs = out if c.fused else (out,)
+        exps = exp if c.fused else (exp,)
+        same = [torch.equal(a, b) for a, b in zip(outs, exps)]
+        assert all(same), f"{c.name} {c.shape}: outputs equal {same}"
+        if c.fused:
+            assert int(exp[3].sum()) > 0, "no tie was counted"
+            note = ", every output equal"
+        err = 0.0
+    elif c.fused:
+        ok_d, err = close(out[0], exp[0])
+        ok_b, err_b = close(out[2], exp[2])
+        ids_ok, n_sep = separated_ids_equal(out, exp)
+        ties_ok = torch.equal(out[3], exp[3])
+        assert ok_d and ok_b and ids_ok and ties_ok, \
+            (f"{c.name} {c.shape}: dists {ok_d} ({err}), bests {ok_b} "
+             f"({err_b}), ids {ids_ok}, ties {ties_ok}")
+        assert int(exp[3].sum()) > 0, "no injected tie was counted"
+        err = max(err, err_b)
+        note = (f", separated ids equal on {n_sep} of "
+                f"{exp[0].numel()} slots")
+    else:
+        ok, err = close(out, exp)
+        assert ok, f"{c.name} {c.shape}: max err {err}"
+    return err, note
+
+
 def phase_kernels(db):
     """Each kernel vs its plain version at the served paths' shapes: the
     error; `ms`, one call with its launch between CUDA events (the time
@@ -566,45 +639,7 @@ def phase_kernels(db):
     inp = kernel_inputs(db)
     rows = {}
     for c in kernel_cases(inp):
-        out, exp = c.kern(*c.sets[0]), c.plain(*c.sets[0])
-        torch.cuda.synchronize()
-        note = ""
-        if c.scan:
-            same = float((out[1] == exp[1]).float().mean())
-            if c.exact:
-                assert torch.equal(out[0], exp[0]) and same == 1.0, \
-                    f"{c.name} {c.shape}: ids equal on {same:.6f}"
-                err = 0.0
-            else:
-                ok, err = close(out[0], exp[0])
-                assert ok and same >= 0.995, \
-                    f"{c.name} {c.shape}: dists {ok} ({err}), ids {same}"
-            note = f", ids equal on {same:.4%} of {exp[1].numel()} slots"
-        elif c.exact:
-            outs = out if c.fused else (out,)
-            exps = exp if c.fused else (exp,)
-            same = [torch.equal(a, b) for a, b in zip(outs, exps)]
-            assert all(same), f"{c.name} {c.shape}: outputs equal {same}"
-            if c.fused:
-                assert int(exp[3].sum()) > 0, "no tie was counted"
-                note = ", every output equal"
-            err = 0.0
-        elif c.fused:
-            ok_d, err = close(out[0], exp[0])
-            ok_b, err_b = close(out[2], exp[2])
-            ids_ok, n_sep = separated_ids_equal(out, exp)
-            ties_ok = torch.equal(out[3], exp[3])
-            assert ok_d and ok_b and ids_ok and ties_ok, \
-                (f"{c.name} {c.shape}: dists {ok_d} ({err}), bests {ok_b} "
-                 f"({err_b}), ids {ids_ok}, ties {ties_ok}")
-            assert int(exp[3].sum()) > 0, "no injected tie was counted"
-            err = max(err, err_b)
-            note = (f", separated ids equal on {n_sep} of "
-                    f"{exp[0].numel()} slots")
-        else:
-            ok, err = close(out, exp)
-            assert ok, f"{c.name} {c.shape}: max err {err}"
-        del out, exp
+        err, note = check_case(c)
         costs = [c.cost(*args) for args in c.sets]
         b_ms, b_by = bound(sum(b for b, _ in costs) / len(costs),
                            sum(f for _, f in costs) / len(costs))

@@ -1,7 +1,11 @@
 // distances.cuh: the per-candidate distance code shared by the gather
-// kernels (gather_dist.cu, pq_adc.cu) and the fused beam steps
-// (traverse_step.cu), so a gathered distance and the same distance inside
-// a fused step are one piece of arithmetic.
+// kernels (gather_dist.cu, pq_adc.cu, pq4_scan.cu, bin_hamming.cu), the
+// list scans (ivf_scan.cu) and the fused beam steps (traverse_step.cu).
+// A PQ, PQ4 or Hamming distance is one piece of arithmetic wherever it is
+// computed. The fused f32 and SQ steps score a row in groups of 8 lanes
+// (traverse_step.cu) with sq_term but not warp_dist_f32/warp_dist_sq, so
+// their sums run in another order than a gathered distance's and the two
+// may differ in the last bit.
 //
 //   warp_dist_f32  one warp, one f32 database row        (gather_dist)
 //   warp_dist_sq   one warp, one u8 row dequantized as

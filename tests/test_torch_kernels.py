@@ -114,6 +114,9 @@ def test_gather_dist_all_invalid():
     (2, 12, 16, 100),   # L < C
     (4, 24, 64, 96),    # the deep_like preset's step, L < C
     (4, 6, 32, 128),    # L > C: block shorter than the queue
+    (3, 7, 16, 200),    # C=21 (a ragged warp) at the t2i_like d
+    (4, 64, 100, 96),   # C=256: the kernel's shared-memory sort, L < C
+    (4, 32, 192, 100),  # C=128 (the widest register sort), L > C
 ])
 def test_fused_expand_matches_reference(metric, W, M, L, d):
     Q, n = 5, 150
@@ -143,12 +146,19 @@ def test_fused_expand_matches_reference(metric, W, M, L, d):
         assert out[3].sum() > 0, "the injected ties were not counted"
 
 
-def test_sorted_block_epilogue_matches_reference():
+@pytest.mark.parametrize("Q,W,M,L,signed_zeros", [
+    (6, 4, 8, 20, False),
+    (4, 4, 64, 100, False),   # C=256, L < C
+    (6, 4, 8, 20, True),      # -0.0 and +0.0 tie, by position
+])
+def test_sorted_block_epilogue_matches_reference(Q, W, M, L, signed_zeros):
     """The shared epilogue on exact, tie-heavy distances (small integers),
     so any tie-order or tie-count difference shows."""
     r = np.random.default_rng(11)
-    Q, W, M, L = 6, 4, 8, 20
     d = r.integers(0, 5, size=(Q, W * M)).astype(np.float32)
+    if signed_zeros:             # 0 -> -0.0, 1 -> +0.0
+        d = np.where(d == 0, np.float32(-0.0),
+                     np.where(d == 1, np.float32(0.0), d))
     ids = r.integers(-1, 40, size=(Q, W * M)).astype(np.int32)
     out = [t.numpy() for t in tref.sorted_block_ref(_t(d), _t(ids), L, W)]
     exp = [np.asarray(a) for a in jref.sorted_block_ref(
@@ -320,6 +330,162 @@ def test_cuda_batch_dist_many_tiles(cuda, Q, B, d, offset):
     for metric in ("l2", "ip"):
         _close(tops.batch_dist(q, x, metric=metric),
                tref.batch_dist_ref(q, x, metric))
+
+
+# the fused steps' branches: C -> (W, L); C <= 128 sorts in one warp's
+# registers (21: a ragged warp; 128: the widest), larger C in shared memory
+_FUSED_C = {21: (3, 32), 96: (4, 96), 128: (4, 192), 256: (4, 100),
+            4096: (4, 320)}
+
+
+def _fused_ids(r, Q, C, W, n):
+    """Random ids, 10% -1; the first 8 slots on rows 0-39 (zero rows in
+    _fused_rows) and slot 8 of query i on row 40 + i (its copy);
+    expansions repeating earlier expansions' ids (exact ties), on queries
+    0 and 2 expansion 0 reversed (so each best ties); query 1 all -1."""
+    ids = r.integers(0, n, size=(Q, C)).astype(np.int32)
+    ids[r.random((Q, C)) < 0.1] = -1
+    ids[:, :8] = r.integers(0, 40, size=(Q, 8))
+    ids[:, 8] = 40 + np.arange(Q)
+    M = C // W
+    for w in range(1, W):
+        ids[:, w * M] = ids[:, 0]
+        ids[:, w * M + 1] = ids[:, (w - 1) * M + 2]
+        ids[[0, 2], w * M:(w + 1) * M] = ids[[0, 2], M - 1::-1]
+    ids[1] = -1
+    return ids
+
+
+def _fused_rows(r, Q, n, d, data):
+    """(q, db, sq codes, scale, zero) for the fused steps. "int": small
+    integers (SQ: scale 1, zero -128), so every distance is exact in any
+    summation order and ties are everywhere; rows 0-39 are zero (ip
+    distance -0.0) and row 40 + i equals query i (l2 distance +0.0).
+    "normal": Gaussian rows and the SQ ranges of the other tests."""
+    if data == "int":
+        q = r.integers(-3, 4, size=(Q, d)).astype(np.float32)
+        db = r.integers(-3, 4, size=(n, d)).astype(np.float32)
+        codes = r.integers(0, 256, size=(n, d)).astype(np.uint8)
+        scale = np.ones(d, np.float32)
+        zero = np.full(d, -128.0, np.float32)
+        db[:40], codes[:40] = 0.0, 128
+        db[40:40 + Q], codes[40:40 + Q] = q, q + 128
+    else:
+        q = r.normal(size=(Q, d)).astype(np.float32)
+        db = r.normal(size=(n, d)).astype(np.float32)
+        codes = r.integers(0, 256, size=(n, d)).astype(np.uint8)
+        scale = (r.random(d) * 0.02 + 1e-3).astype(np.float32)
+        zero = (-r.random(d)).astype(np.float32)
+    return q, db, codes, scale, zero
+
+
+def _check_fused(out, exp, exact):
+    """A fused block against its plain version: with `exact` every output
+    equal; else dists and bests to TOL, tie counts equal, and ids equal
+    wherever the sorted distance is apart from both neighbours by more
+    than TOL's atol (near-ties may swap, as the sums' order differs)."""
+    if exact:
+        assert all(torch.equal(a, b) for a, b in zip(out, exp))
+        return
+    _close(out[0], exp[0])
+    _close(out[2], exp[2])
+    assert torch.equal(out[3], exp[3])
+    sd = exp[0]
+    gap = (sd[:, 1:] - sd[:, :-1]).abs().nan_to_num(0.0) > TOL["atol"]
+    sep = torch.ones_like(sd, dtype=torch.bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    assert torch.equal(out[1][sep], exp[1][sep])
+    inf = ~torch.isfinite(sd)
+    assert torch.equal(out[1][inf], exp[1][inf])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["int", "normal"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [7, 96, 100, 128, 200])
+@pytest.mark.parametrize("C", sorted(_FUSED_C))
+def test_cuda_fused_expand_branches(cuda, C, d, metric, data):
+    """fused_expand and fused_expand_sq at every scorer branch (d = 96:
+    three float4 a lane; 100, 128, 200: four, 200 in two passes; 7: the
+    scalar path; SQ 16-, 8-, 4- and 1-byte units) and every sort branch,
+    on tie storms (repeated ids, integer distances, -0.0 and +0.0) and on
+    a query whose ids are all -1."""
+    W, L = _FUSED_C[C]
+    r = np.random.default_rng(C * 1000 + d)
+    Q, n = 16, 3000
+    q, db, codes, scale, zero = (torch.as_tensor(a, device=cuda) for a in
+                                 _fused_rows(r, Q, n, d, data))
+    ids = torch.as_tensor(_fused_ids(r, Q, C, W, n), device=cuda)
+    before = tops.launch_counts()
+    out = tops.fused_expand(q, db, ids, metric=metric, L=L, n_beam=W)
+    exp = tref.fused_expand_ref(q, db, ids, metric, L, W)
+    _check_fused(out, exp, data == "int")
+    out = tops.fused_expand_sq(q, codes, scale, zero, ids, metric=metric,
+                               L=L, n_beam=W)
+    exp = tref.fused_expand_sq_ref(q, codes, scale, zero, ids, metric, L, W)
+    _check_fused(out, exp, data == "int")
+    assert int(exp[3].sum()) > 0, "no injected tie was counted"
+    assert not torch.isfinite(out[0][1]).any() and (out[1][1] == -1).all()
+    after = tops.launch_counts()
+    assert after["fused_expand"] == before["fused_expand"] + 1
+    assert after["fused_expand_sq"] == before["fused_expand_sq"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [96, 100, 128, 200])
+def test_cuda_fused_expand_unaligned_rows(cuda, d, metric):
+    """Row-misaligned views of the database and the SQ codes take the
+    scalar units (4-byte floats, single code bytes)."""
+    r = np.random.default_rng(d)
+    Q, n, W, C, L = 16, 3000, 4, 96, 96
+    q, db, codes, scale, zero = _fused_rows(r, Q, n, d, "int")
+    ids = torch.as_tensor(_fused_ids(r, Q, C, W, n), device=cuda)
+    flat = torch.zeros(n * d + 1, device=cuda)
+    flat[1:] = torch.as_tensor(db.ravel(), device=cuda)
+    bytes_ = torch.zeros(n * d + 1, dtype=torch.uint8, device=cuda)
+    bytes_[1:] = torch.as_tensor(codes.ravel(), device=cuda)
+    q, scale, zero = (torch.as_tensor(a, device=cuda) for a in (q, scale,
+                                                                  zero))
+    db, codes = flat[1:].view(n, d), bytes_[1:].view(n, d)
+    _check_fused(tops.fused_expand(q, db, ids, metric=metric, L=L, n_beam=W),
+                 tref.fused_expand_ref(q, db, ids, metric, L, W), True)
+    _check_fused(tops.fused_expand_sq(q, codes, scale, zero, ids,
+                                      metric=metric, L=L, n_beam=W),
+                 tref.fused_expand_sq_ref(q, codes, scale, zero, ids, metric,
+                                          L, W), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", sorted(_FUSED_C))
+def test_cuda_fused_epilogue_other_kinds(cuda, C):
+    """fused_expand_pq, fused_expand_pq4 and fused_expand_bin through the
+    shared epilogue at each sort branch: integer tables (exact sums, so
+    tie storms) and sign words, every output equal to the plain
+    version's."""
+    W, L = _FUSED_C[C]
+    r = np.random.default_rng(C)
+    Q, n, m = 16, 3000, 16
+    ids = torch.as_tensor(_fused_ids(r, Q, C, W, n), device=cuda)
+    lut = torch.as_tensor(r.integers(-4, 5, size=(Q, m, 256)).astype(
+        np.float32), device=cuda)
+    lut4 = torch.as_tensor(r.integers(-4, 5, size=(Q, m, 16)).astype(
+        np.float32), device=cuda)
+    pcodes, packed = (torch.as_tensor(r.integers(0, 256, size=(n, k)).astype(
+        np.uint8), device=cuda) for k in (m, m // 2))
+    qw, words = (torch.as_tensor(r.integers(-2 ** 31, 2 ** 31, size=(k, 3))
+                                 .astype(np.int32), device=cuda)
+                 for k in (Q, n))
+    for out, exp in (
+            (tops.fused_expand_pq(lut, pcodes, ids, L=L, n_beam=W),
+             tref.fused_expand_pq_ref(lut, pcodes, ids, L, W)),
+            (tops.fused_expand_pq4(lut4, packed, ids, L=L, n_beam=W),
+             tref.fused_expand_pq4_ref(lut4, packed, ids, L, W)),
+            (tops.fused_expand_bin(qw, words, ids, L=L, n_beam=W),
+             tref.fused_expand_bin_ref(qw, words, ids, L, W))):
+        _check_fused(out, exp, True)
+        assert int(exp[3].sum()) > 0, "no injected tie was counted"
 
 
 # --------------------------------------------------------------------------

@@ -113,7 +113,8 @@ def _same_block(out, exps):
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("W,M,L,d", [(1, 8, 8, 96), (4, 24, 64, 96),
-                                     (4, 6, 32, 32)])
+                                     (4, 6, 32, 32), (3, 7, 16, 200),
+                                     (4, 64, 100, 96), (4, 32, 192, 100)])
 def test_fused_expand_sq_matches_reference(metric, W, M, L, d):
     Q, n, C = 4, 150, W * M
     q, codes, scale, zero, ids = _sq_case(W * M + L + d, Q, C, n, d)
