@@ -11,8 +11,8 @@ Each variant's copy of `src/repro_torch/kernels/csrc/<source>.cu` is built
 (all at once, nvcc as `kernels/_build.py` builds, ptxas registers and
 spills kept) into `build/variants/<name>/`; then the cases of
 `chip_smoke.py`'s phase 2 (`kernel_inputs`, `kernel_cases`) whose kernel
-the source holds (the `launches` keys of the wrapper module of the same
-name) are checked against their plain versions once per variant and timed
+the source holds (`chip_smoke.KERNEL_SOURCES`) are checked against their
+plain versions once per variant and timed
 by phase 2's device clock (`graph_ms`), through every variant in order and
 again in reverse. Prints the card, each variant's registers a kernel
 instance, and one line a case (the lower and higher of its two times per
@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import importlib
 import json
 import re
 import subprocess
@@ -46,11 +45,12 @@ def variant_source(text: str, sets: list) -> str:
 
 def instance(mangled: str) -> str:
     """A readable name for a kernel template instance: its functor and the
-    functor's integer and bool template arguments (`F32Dist<3,4,1>`)."""
-    m = re.search(r"_\d+([A-Z]\w*?Dist)(I\w*?E)?E+vT_", mangled)
+    integer and bool template arguments after it, the functor's or the
+    kernel's (`F32Dist<3,4,1>`, `PqScan<1,1>`)."""
+    m = re.search(r"_\d+([A-Z]\w*?(?:Dist|Scan))(\w*?)E+vT_", mangled)
     if not m:
         return mangled[-48:]
-    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    args = re.findall(r"L[ib](\d+)", m.group(2))
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -85,8 +85,8 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.kernels import _build
-    kernels = set(importlib.import_module(
-        f"repro_torch.kernels.{args.source}").launches)
+    kernels = {name for name, (src, _, _) in cs.KERNEL_SOURCES.items()
+               if src == args.source}
     text = (_build.CSRC / f"{args.source}.cu").read_text()
     out_dir = _build.build_dir().parent / "variants"
     nvcc = _build._nvcc()

@@ -8,8 +8,9 @@ Phases:
      every kernel in src/repro_torch/kernels/csrc;
   2. each kernel against its plain torch version on the card, at the main
      path's shapes, with its time, its bound, the plain version's time and
-     a library yardstick (the bin list scan also on a tie storm and at
-     L = max_len, exactly);
+     a library yardstick (the list scans exactly; `ivf_scan` also at 4x the
+     ivf_pq preset's nprobe, and it and the bin scan on a tie storm and at
+     L = max_len);
   3. the 50k anchor: deep_like at n=50,000 against the committed
      BENCH_traverse.json row (W=4, early termination on);
   4. the main path at Deep1M scale: KBest.add over 1,000,000 deep_like
@@ -81,6 +82,36 @@ ANCHOR = dict(recall=0.957, iters=23)   # BENCH_traverse.json, W=4, ET on
 TRAVERSAL_VALID = 0.66
 
 REPORT: dict = {}
+
+# Each kernel: its source (src/repro_torch/kernels/csrc/<source>.cu), the
+# TPU kernel it replaces, and the path whose launches the kernels line
+# counts (phase 4's main path, phase 5's or phase 6's quantized paths,
+# phase 7's IVF paths)
+KERNEL_SOURCES = {
+    "gather_dist": ("gather_dist", "src/repro/kernels/gather_dist.py:49",
+                    "main"),
+    "fused_expand": ("traverse_step",
+                     "src/repro/kernels/traverse_step.py:102", "main"),
+    "batch_dist": ("batch_dist", "src/repro/kernels/batch_dist.py:45",
+                   "main"),
+    "sq_gather_dist": ("gather_dist", "src/repro/kernels/gather_dist.py:99",
+                       "quant"),
+    "fused_expand_sq": ("traverse_step",
+                        "src/repro/kernels/traverse_step.py:160", "quant"),
+    "pq_adc": ("pq_adc", "src/repro/kernels/pq_adc.py:36", "quant"),
+    "fused_expand_pq": ("traverse_step",
+                        "src/repro/kernels/traverse_step.py:222", "quant"),
+    "fused_expand_pq4": ("traverse_step",
+                         "src/repro/kernels/traverse_step.py:251", "pq4_bin"),
+    "pq4_adc": ("pq4_scan", "src/repro/kernels/pq4_scan.py:62", "pq4_bin"),
+    "bin_dist": ("bin_hamming", "src/repro/kernels/bin_hamming.py:55",
+                 "pq4_bin"),
+    "fused_expand_bin": ("traverse_step",
+                         "src/repro/kernels/bin_hamming.py:99", "pq4_bin"),
+    "pq4_ivf_scan": ("ivf_scan", "src/repro/kernels/pq4_scan.py:119", "ivf"),
+    "bin_ivf_scan": ("bin_ivf_scan", "src/repro/kernels/bin_hamming.py:149",
+                     "ivf"),
+    "ivf_scan": ("ivf_scan", "src/repro/kernels/ivf_scan.py:62", "ivf")}
 
 
 def log(*a):
@@ -308,9 +339,10 @@ def kernel_inputs(db) -> dict:
         dtype=torch.int32).to(torch.uint8), bin=torch.randint(
         -2 ** 31, 2 ** 31, (nlist, max_len, nw), generator=g, device=dev,
         dtype=torch.int64).to(torch.int32))
-    # a tie storm: every slot of a list holds that list's first code
-    lists["bin_storm"] = lists["bin"][:, :1].expand(-1, max_len,
-                                                    -1).contiguous()
+    # tie storms: every slot of a list holds that list's first code
+    for kind in ("pq", "bin"):
+        lists[f"{kind}_storm"] = lists[kind][:, :1].expand(
+            -1, max_len, -1).contiguous()
     return dict(db=db, q=q, codes=codes, scale=scale, zero=zero,
                 pcodes=pcodes, K=K, g=g, p4codes=p4codes, signs=words[:n],
                 qsigns=words[n:].contiguous(), lists=lists)
@@ -365,9 +397,10 @@ def kernel_cases(inp: dict) -> "list[Case]":
     fused_expand and fused_expand_sq at C=96: the traversal's share,
     TRAVERSAL_VALID); the fused steps' ids repeat rows across
     expansions, so exact ties occur (and Hamming distances of random signs
-    tie everywhere). The bin kernels must equal their plain versions. Each case holds
-    enough argument sets that they gather twice the card's L2 in all. The
-    kernels are called through `ops`, so any checkout's can be timed."""
+    tie everywhere). The bin kernels and the list scans must equal their
+    plain versions. Each case holds enough argument sets that they gather
+    twice the card's L2 in all. The kernels are called through `ops`, so
+    any checkout's can be timed."""
     import torch
     from repro_torch.kernels import ops, ref
     db, q, codes, scale, zero, pcodes, K, g = (
@@ -529,7 +562,8 @@ def kernel_cases(inp: dict) -> "list[Case]":
 
     # ---- the IVF list scans at the Deep1M presets' shapes, tables per
     # probe (random) and per query (the ip presets' case, in the kernels
-    # line); ids of a scan equal on >= 99.5% of slots, bin exactly ----
+    # line); ivf_scan also at 4x the ivf_pq preset's nprobe, on a tie storm
+    # and at L = max_len; every scan output equal to the plain version's
     lists = inp["lists"]
     nlist, max_len = lists["ids"].shape
 
@@ -537,15 +571,19 @@ def kernel_cases(inp: dict) -> "list[Case]":
         return torch.argsort(torch.rand((Q, nlist), generator=g, device=dev),
                              dim=1)[:, :P].to(torch.int32).contiguous()
 
-    for name, P, L, m_, K_, codes_ in (("ivf_scan", 24, 128, 16, 256, "pq"),
-                                       ("pq4_ivf_scan", 32, 192, 32, 16,
-                                        "pq4")):
+    for name, P, L, m_, K_, codes_, note in (
+            ("ivf_scan", 24, 128, 16, 256, "pq", ""),
+            ("ivf_scan", 96, 128, 16, 256, "pq", ""),
+            ("ivf_scan", 24, 128, 16, 256, "pq_storm", " tie storm"),
+            ("ivf_scan", 8, max_len, 16, 256, "pq", ""),
+            ("pq4_ivf_scan", 32, 192, 32, 16, "pq4", "")):
         lc = lists[codes_]
         fn = ops.ivf_scan if K_ == 256 else ops.pq4_ivf_scan
         plain = ref.ivf_scan_ref if K_ == 256 else ref.pq4_ivf_scan_ref
-        for Pl in (P, 1):
+        served = P in (24, 32) and not note      # the presets' shapes
+        for Pl in ((P, 1) if served else (1,)):
             add(name, f"Q={Q} P={P} Pl={Pl} L={L} m={m_} K={K_} nlist={nlist}"
-                f" max_len={max_len}", Pl == 1, False,
+                f" max_len={max_len}{note}", Pl == 1 and served, False,
                 lambda t, pr, fn=fn, L=L, lc=lc: fn(t, lc, lists["ids"], pr,
                                                     L=L),
                 lambda t, pr, plain=plain, L=L, lc=lc: plain(
@@ -556,7 +594,7 @@ def kernel_cases(inp: dict) -> "list[Case]":
                     float(int((lists["ids"][pr.long()] >= 0).sum()) * m_)),
                 lambda P=P, Pl=Pl, m_=m_, K_=K_: (
                     torch.randn((Q, Pl, m_, K_), generator=g, device=dev),
-                    probes(P)), scan=True)
+                    probes(P)), exact=True, scan=True)
     # the bin scan at the ivf_bin preset's shape (in the kernels line), on
     # a tie storm (every distance of a list equal), and at L = max_len
     for P, L, words, note in ((96, 768, "bin", ""),
@@ -1296,44 +1334,13 @@ def main() -> int:
     del idx
     torch.cuda.empty_cache()
     icounts = timed("ivf", phase_ivf, ds, none_rec)
-    csrc = "src/repro_torch/kernels/csrc/"
-    # name: (source, the TPU kernel it replaces, the path whose launches
-    # count: phase 4's main path, phase 5's or phase 6's quantized paths,
-    # phase 7's IVF paths)
-    sources = {
-        "gather_dist": (csrc + "gather_dist.cu",
-                        "src/repro/kernels/gather_dist.py:49", counts),
-        "fused_expand": (csrc + "traverse_step.cu",
-                         "src/repro/kernels/traverse_step.py:102", counts),
-        "batch_dist": (csrc + "batch_dist.cu",
-                       "src/repro/kernels/batch_dist.py:45", counts),
-        "sq_gather_dist": (csrc + "gather_dist.cu",
-                           "src/repro/kernels/gather_dist.py:99", qcounts),
-        "fused_expand_sq": (csrc + "traverse_step.cu",
-                            "src/repro/kernels/traverse_step.py:160", qcounts),
-        "pq_adc": (csrc + "pq_adc.cu", "src/repro/kernels/pq_adc.py:36",
-                   qcounts),
-        "fused_expand_pq": (csrc + "traverse_step.cu",
-                            "src/repro/kernels/traverse_step.py:222", qcounts),
-        "fused_expand_pq4": (csrc + "traverse_step.cu",
-                             "src/repro/kernels/traverse_step.py:251",
-                             bcounts),
-        "pq4_adc": (csrc + "pq4_scan.cu", "src/repro/kernels/pq4_scan.py:62",
-                    bcounts),
-        "bin_dist": (csrc + "bin_hamming.cu",
-                     "src/repro/kernels/bin_hamming.py:55", bcounts),
-        "fused_expand_bin": (csrc + "traverse_step.cu",
-                             "src/repro/kernels/bin_hamming.py:99", bcounts),
-        "pq4_ivf_scan": (csrc + "ivf_scan.cu",
-                         "src/repro/kernels/pq4_scan.py:119", icounts),
-        "bin_ivf_scan": (csrc + "bin_ivf_scan.cu",
-                         "src/repro/kernels/bin_hamming.py:149", icounts),
-        "ivf_scan": (csrc + "ivf_scan.cu",
-                     "src/repro/kernels/ivf_scan.py:62", icounts)}
+    path_counts = dict(main=counts, quant=qcounts, pq4_bin=bcounts,
+                       ivf=icounts)
     kernels = []
-    for name, (src, rep, path_counts) in sources.items():
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=rep, launches=path_counts[name],
+    for name, (src, rep, path) in KERNEL_SOURCES.items():
+        kernels.append(dict(name=name, route="cuda",
+                            source=f"src/repro_torch/kernels/csrc/{src}.cu",
+                            replaces=rep, launches=path_counts[path][name],
                             **rows[name]))
     REPORT["kernels"] = kernels
     # what each kernel's time above its bound cost its path in this run:

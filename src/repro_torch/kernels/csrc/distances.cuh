@@ -14,6 +14,8 @@
 //                  sum_j lut[j * K + code[j]]            (pq_adc)
 //   thread_adc4    one thread, one m/2-byte nibble-packed PQ4 code:
 //                  sum_j lut[j * 16 + code[j]]           (pq4_adc)
+//   thread_adc_n,  thread_adc and thread_adc4 over U rows at once, the
+//   thread_adc4_n  same sums                             (the list scans)
 //   thread_hamming one thread, one nw-word sign code:
 //                  sum_w popc(q[w] ^ code[w])            (bin_dist)
 //
@@ -136,6 +138,45 @@ __device__ __forceinline__ float thread_adc(
   return acc;
 }
 
+// thread_adc over U rows at once, each row's sum exactly thread_adc's (from
+// +0.0, j = 0 .. m-1 in order); the U sums are independent chains, so
+// their table reads overlap. Rows with on[u] false are not read (out[u]
+// is then 0).
+template <int U>
+__device__ __forceinline__ void thread_adc_n(
+    const unsigned char* __restrict__ codes, const int (&row)[U],
+    const bool (&on)[U], const float* __restrict__ lut, int m, int K,
+    bool vec16, float (&out)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) out[u] = 0.f;
+  if (vec16) {
+    for (int j0 = 0; j0 < m; j0 += 16) {
+      uint4 w[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        w[u] = on[u] ? __ldg(reinterpret_cast<const uint4*>(
+                           codes + (size_t)row[u] * m + j0))
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned int wd = t < 4 ? w[u].x : t < 8 ? w[u].y
+                                  : t < 12 ? w[u].z : w[u].w;
+          const unsigned int c = (wd >> ((t & 3) * 8)) & 0xffu;
+          if (on[u]) out[u] += lut[(j0 + t) * K + c];
+        }
+      }
+    }
+  } else {
+    for (int j = 0; j < m; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (on[u]) out[u] += lut[j * K + __ldg(codes + (size_t)row[u] * m + j)];
+    }
+  }
+}
+
 // One thread, one nibble-packed code row of m/2 bytes (id >= 0): byte b
 // holds subspace 2b in its low nibble and 2b+1 in its high nibble; summed
 // over j = 0 .. m-1 in order, lut being the (m, 16) table. vec8: m % 16
@@ -166,6 +207,51 @@ __device__ __forceinline__ float thread_adc4(
     }
   }
   return acc;
+}
+
+// thread_adc4 over U rows at once, as thread_adc_n is thread_adc's.
+template <int U>
+__device__ __forceinline__ void thread_adc4_n(
+    const unsigned char* __restrict__ codes, const int (&row)[U],
+    const bool (&on)[U], const float* __restrict__ lut, int m, bool vec8,
+    float (&out)[U]) {
+  const int mh = m >> 1;
+#pragma unroll
+  for (int u = 0; u < U; ++u) out[u] = 0.f;
+  if (vec8) {
+    for (int b0 = 0; b0 < mh; b0 += 8) {
+      uint2 w[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        w[u] = on[u] ? __ldg(reinterpret_cast<const uint2*>(
+                           codes + (size_t)row[u] * mh + b0))
+                     : make_uint2(0u, 0u);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int j = 2 * (b0 + t);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const unsigned int c = ((t < 4 ? w[u].x : w[u].y) >> ((t & 3) * 8))
+                                 & 0xffu;
+          if (on[u]) {
+            out[u] += lut[j * 16 + (c & 15u)];
+            out[u] += lut[(j + 1) * 16 + (c >> 4)];
+          }
+        }
+      }
+    }
+  } else {
+    for (int b = 0; b < mh; ++b) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (on[u]) {
+          const unsigned int c = __ldg(codes + (size_t)row[u] * mh + b);
+          out[u] += lut[2 * b * 16 + (c & 15u)];
+          out[u] += lut[(2 * b + 1) * 16 + (c >> 4)];
+        }
+      }
+    }
+  }
 }
 
 // One thread, one packed sign row of nw 32-bit words (id >= 0) against the

@@ -89,14 +89,15 @@ def pq4_adc_ref(lut: torch.Tensor, packed: torch.Tensor,
                 ids: torch.Tensor) -> torch.Tensor:
     """(Q, m, 16) luts, (n, m//2) u8 nibble-packed codes, (Q, B) ids ->
     (Q, B) ADC dists; invalid ids -> +inf. Unpack-then-pq_adc, summed
-    over j = 0 .. m-1 in order: the order of the reference's jnp.sum on
-    the CPU and of the CUDA kernel, so all three give the same floats.
-    With u8-requantized tables many sums tie exactly, and a sum in
-    another order would break those ties differently."""
+    from +0.0 over j = 0 .. m-1 in order: the order of the reference's
+    jnp.sum on the CPU and of the CUDA kernel, so all three give the same
+    floats (a code whose terms are all -0.0 sums to +0.0). With
+    u8-requantized tables many sums tie exactly, and a sum in another
+    order would break those ties differently."""
     c = _unpack_nibbles_ref(packed[torch.clamp(ids, min=0).long()])
     g = torch.gather(lut[:, None, :, :].expand(-1, c.shape[1], -1, -1), 3,
                      c[..., None])[..., 0]
-    out = g[..., 0]
+    out = g[..., 0] + 0.0
     for j in range(1, g.shape[-1]):
         out = out + g[..., j]
     return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
@@ -225,13 +226,13 @@ def _by_query_chunks(score, probe_ids: torch.Tensor, width: int, L: int):
 
 def _adc_lists(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(q, Pl, m, K) tables, (q, P, max_len, m) int64 codes -> (q, P,
-    max_len) ADC sums over j = 0 .. m-1 in order, as the CUDA kernel sums
-    (see pq4_adc_ref)."""
+    max_len) ADC sums from +0.0 over j = 0 .. m-1 in order, as the CUDA
+    kernel sums (see pq4_adc_ref)."""
     q, P, N, m = codes.shape
     t = luts.expand(q, P, m, luts.shape[-1])[:, :, None]
     g = torch.gather(t.expand(q, P, N, m, t.shape[-1]), 4,
                      codes[..., None])[..., 0]
-    out = g[..., 0]
+    out = g[..., 0] + 0.0
     for j in range(1, m):
         out = out + g[..., j]
     return out

@@ -165,6 +165,31 @@ def test_scan_tie_storms(kind):
     assert np.sum(d[..., 1:] == d[..., :-1]) > Q * P, "no tie storm"
 
 
+@pytest.mark.parametrize("per_probe", [False, True])
+@pytest.mark.parametrize("kind", sorted(SCAN))
+def test_scan_signed_zero_tables(kind, per_probe):
+    """Tables of small integers and ±0.0 whose entry 0 is -0.0 in every
+    subspace, every third slot's codes all 0: those sums are +0.0, as
+    jnp.sum and the CUDA kernel's sum from +0.0 give them, and tie with
+    the other zero sums, so slot order decides; equal to the reference."""
+    K, m, kern, oracle, port = SCAN[kind]
+    Q, P, nlist, max_len, L = 3, 4, 7, 40, 23
+    r = np.random.default_rng(11 + per_probe)
+    luts = r.choice(np.array([-0.0, 0.0, -1.0, 1.0], np.float32),
+                    size=(Q, P if per_probe else 1, m, K))
+    luts[..., 0] = -0.0
+    width = m if K == 256 else m // 2
+    codes = r.integers(0, 256, size=(nlist, max_len, width)).astype(np.uint8)
+    codes[:, ::3] = 0
+    ids, pr = _lists(r, nlist, max_len), _probes(r, Q, P, nlist)
+    args = (luts, codes, ids, pr)
+    out = [a.numpy() for a in port(*map(_t, args), L=L)]
+    _same(out, [kern(*map(jnp.asarray, args), L=L),
+                oracle(*map(jnp.asarray, args), L)], exact=True)
+    zero = out[0] == 0
+    assert zero.sum() > Q * P and not np.signbit(out[0][zero]).any()
+
+
 def test_plain_scans_chunk_over_queries(monkeypatch):
     """The plain versions' query chunks change nothing."""
     r = np.random.default_rng(3)

@@ -488,6 +488,103 @@ def test_cuda_fused_epilogue_other_kinds(cuda, C):
         assert int(exp[3].sum()) > 0, "no injected tie was counted"
 
 
+# the PQ list scans' branches: case -> (max_len, L for PQ8, L for PQ4,
+# tables). L <= 256 with the list's keys in shared memory takes the
+# histogram select and the sort in one warp's registers; "nan" tables
+# (+inf and NaN entries, L = max_len: +inf and NaN keys in the tail) and
+# L = 300 (above that sort) take the general select on cached keys;
+# 70,000 slots do not fit shared memory (keys recomputed on each pass,
+# L above one round of 4,096)
+_SCAN_CASES = {"main": (2176, 128, 192, "normal"),
+               "short": (300, 250, 250, "normal"),      # a -1 tail
+               "storm": (700, 128, 192, "storm"),
+               "zeros": (500, 100, 200, "zeros"),
+               "max_len": (200, 200, 200, "normal"),
+               "max_len_general": (300, 300, 300, "normal"),
+               "long": (20_000, 128, 192, "normal"),
+               "nan": (256, 256, 256, "nan"),
+               "rounds": (70_000, 5000, 5000, "normal")}
+_SCAN_KERNELS = {"pq": (256, "ivf_scan", "ivf_scan_ref"),
+                 "pq4": (16, "pq4_ivf_scan", "pq4_ivf_scan_ref")}
+
+
+def _scan_operands(r, kind, m, Pl, Q, P, nlist, max_len, table):
+    """Tables, codes, list ids and probes for the list-scan branch tests:
+    ragged lists with 10% holes, list 0 all -1 and list 1 full; "storm":
+    every code of list 1 equal (all its distances tie, so slot order
+    decides); "zeros": small integers and ±0.0 with entry 0 -0.0 in every
+    subspace and every third slot's codes 0 (exact sums, zero ties);
+    "nan": about 2% of the entries +inf or NaN."""
+    K = _SCAN_KERNELS[kind][0]
+    width = m if K == 256 else m // 2
+    if table == "zeros":
+        luts = r.choice(np.array([-0.0, 0.0, -1.0, 1.0], np.float32),
+                        size=(Q, Pl, m, K))
+        luts[..., 0] = -0.0
+    else:
+        luts = r.normal(size=(Q, Pl, m, K)).astype(np.float32)
+    if table == "nan":
+        hit = r.random(luts.shape) < 0.02
+        luts[hit] = r.choice(np.array([np.inf, np.nan], np.float32),
+                             size=int(hit.sum()))
+    codes = r.integers(0, 256, size=(nlist, max_len, width)).astype(np.uint8)
+    if table == "zeros":
+        codes[:, ::3] = 0
+    ids = r.integers(0, 1_000_000, size=(nlist, max_len)).astype(np.int32)
+    ids[np.arange(max_len)[None] >= r.integers(0, max_len + 1,
+                                                size=(nlist, 1))] = -1
+    ids[r.random((nlist, max_len)) < 0.1] = -1
+    ids[0] = -1
+    ids[1] = r.choice(1_000_000, size=max_len, replace=False)
+    if table == "storm":
+        codes[1] = codes[1, 0]
+    probes = r.integers(0, nlist, size=(Q, P)).astype(np.int32)
+    probes[:, 0] = 1
+    probes[1, 1] = 0
+    return luts, codes, ids, probes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16, 32])
+@pytest.mark.parametrize("case", sorted(_SCAN_CASES))
+def test_cuda_list_scans_equal_plain(cuda, case, m):
+    """ivf_scan and pq4_ivf_scan against their plain versions, distances
+    (bit patterns) and ids exactly, at every branch of the kernel: tables
+    per query (Pl = 1) and per probe (Pl = P), P = 11 probes (not a
+    multiple of a block's probe group), a probe of the all -1 list, probes
+    outside [0, nlist) (whole rows of (+inf, -1)), lists shorter than L,
+    tie storms, ±0.0 tables, L = max_len, m = 8, 16, 32 (the scalar and
+    the vector code loads)."""
+    max_len, L8, L4, table = _SCAN_CASES[case]
+    Q, P, nlist = 6, 11, 5
+    before = tops.launch_counts()
+    for kind, (K, name, plain) in _SCAN_KERNELS.items():
+        L = L8 if K == 256 else L4
+        for Pl in (1, P):
+            r = np.random.default_rng([max_len, L, m, Pl, K])
+            luts, codes, ids, probes = (
+                torch.as_tensor(a, device=cuda) for a in _scan_operands(
+                    r, kind, m, Pl, Q, P, nlist, max_len, table))
+            bad = probes.clone()
+            bad[2, 3], bad[3, 4] = -1, nlist
+            out = getattr(tops, name)(luts, codes, ids, bad, L=L)
+            exp = getattr(tref, plain)(luts, codes, ids, probes, L)
+            edge = (bad != probes)[..., None].expand_as(exp[0])
+            exp = (torch.where(edge, float("inf"), exp[0]),
+                   torch.where(edge, -1, exp[1]))
+            assert torch.equal(out[0].view(torch.int32),
+                               exp[0].view(torch.int32)), (kind, Pl)
+            assert torch.equal(out[1], exp[1]), (kind, Pl)
+            if table == "storm":
+                assert bool((exp[0][:, 0, 1:] == exp[0][:, 0, :-1]).all())
+            if case == "short":      # a list with ids, then a -1 tail
+                assert bool(((exp[1][..., 0] >= 0)
+                             & (exp[1][..., -1] == -1)).any())
+    after = tops.launch_counts()
+    assert after["ivf_scan"] == before["ivf_scan"] + 2
+    assert after["pq4_ivf_scan"] == before["pq4_ivf_scan"] + 2
+
+
 # --------------------------------------------------------------------------
 # import isolation
 # --------------------------------------------------------------------------

@@ -232,6 +232,22 @@ def test_pq4_adc_matches_reference(Q, B, n, m):
     assert np.isinf(out[ids < 0]).all()
 
 
+def test_pq4_adc_negative_zero_rows():
+    """A code whose terms are all -0.0 sums to +0.0, as jnp.sum and the
+    CUDA kernel's sum from +0.0 give it: the sign is held exactly."""
+    lut, packed, ids = _pq4_case(7, 3, 8, 40, 16)
+    lut[..., 0] = -0.0
+    packed[::2] = 0
+    out = tops.pq4_adc(_t(lut), _t(packed), _t(ids)).numpy()
+    j = jnp.asarray
+    for exp in (jops.pq4_adc(j(lut), j(packed), j(ids)),
+                jref.pq4_adc_ref(j(lut), j(packed), j(ids))):
+        assert np.array_equal(np.signbit(out), np.signbit(np.asarray(exp)))
+        np.testing.assert_allclose(out, np.asarray(exp), **TOL)
+    zero = (ids >= 0) & (ids % 2 == 0)
+    assert zero.any() and (out[zero] == 0).all()
+
+
 @pytest.mark.parametrize("W,M,L", [(1, 8, 4), (4, 6, 24), (4, 8, 10)])
 def test_fused_expand_pq4_matches_reference(W, M, L):
     Q, C, n, m = 3, W * M, 60, 16
