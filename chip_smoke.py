@@ -8,7 +8,10 @@ Phases:
      every kernel in src/repro_torch/kernels/csrc;
   2. each kernel against its plain torch version on the card, at the main
      path's shapes, with its time, its bound, the plain version's time and
-     a library yardstick (the list scans exactly; `ivf_scan` also at 4x the
+     a library yardstick (the bin kernels, the PQ and PQ4 gathers and
+     fused steps and the list scans exactly; the PQ gathers also on code
+     rows at a 1-byte offset, `pq_adc` at m=12 over K=64 tables and
+     `pq4_adc` over u8-requantized tables; `ivf_scan` also at 4x the
      ivf_pq preset's nprobe, and it and the bin scan on a tie storm and at
      L = max_len);
   3. the 50k anchor: deep_like at n=50,000 against the committed
@@ -295,6 +298,23 @@ def row_bytes(ids, width: int) -> int:
     return int((last - first + 1).sum()) * SECTOR
 
 
+def offset_view(codes):
+    """`codes` copied to a view one byte into a flat buffer: its rows are
+    not aligned, so the kernels read them a byte at a time."""
+    import torch
+    flat = torch.empty(codes.numel() + 1, dtype=codes.dtype,
+                       device=codes.device)
+    flat[1:] = codes.reshape(-1)
+    return flat[1:].view(codes.shape)
+
+
+def u8_tables(lut):
+    """(Q, m, 16) tables requantized to u8 steps per query, as the
+    pq4+u8lut kind serves them (quantize.pq4_requant_lut)."""
+    from repro_torch.core.quantize import pq4_requant_lut
+    return pq4_requant_lut(lut.reshape(lut.shape[0], -1)).reshape(lut.shape)
+
+
 def kernel_inputs(db) -> dict:
     """Phase 2's operands over the (n, d) f32 rows `db`: Q=1000 unit
     queries, SQ codes of the n rows with per-dimension scale and zero, PQ8
@@ -397,7 +417,9 @@ def kernel_cases(inp: dict) -> "list[Case]":
     fused_expand and fused_expand_sq at C=96: the traversal's share,
     TRAVERSAL_VALID); the fused steps' ids repeat rows across
     expansions, so exact ties occur (and Hamming distances of random signs
-    tie everywhere). The bin kernels and the list scans must equal their
+    tie everywhere). The PQ gathers also run at M=24 on their general
+    paths. The bin kernels, the PQ and PQ4 gathers and fused steps (which
+    sum as their plain versions do) and the list scans must equal their
     plain versions. Each case holds enough argument sets that they gather
     twice the card's L2 in all. The kernels are called through `ops`, so
     any checkout's can be timed."""
@@ -426,8 +448,8 @@ def kernel_cases(inp: dict) -> "list[Case]":
             ids[:, w * M + 3] = ids[:, w]
         return ids
 
-    def lut(k=K):
-        return torch.randn((Q, m, k), generator=g, device=dev)
+    def lut(k=K, mm=m):
+        return torch.randn((Q, mm, k), generator=g, device=dev)
 
     def valid(ids):
         return int((ids >= 0).sum())
@@ -466,13 +488,13 @@ def kernel_cases(inp: dict) -> "list[Case]":
             lambda t, ids: ref.pq_adc_ref(t, pcodes, ids),
             lambda t, ids, M=M: (pq_bytes(pcodes, ids) + Q * M * 8,
                                  float(valid(ids) * m)),
-            lambda M=M: (lut(), rand_ids(M)))
+            lambda M=M: (lut(), rand_ids(M)), exact=True)
         add("pq4_adc", f"Q={Q} B={M} m={m} K=16 n={n}", M == 24, False,
             lambda t, ids: ops.pq4_adc(t, p4codes, ids),
             lambda t, ids: ref.pq4_adc_ref(t, p4codes, ids),
             lambda t, ids, M=M: (pq_bytes(p4codes, ids, nibbles=True)
                                  + Q * M * 8, float(valid(ids) * m)),
-            lambda M=M: (lut(16), rand_ids(M)))
+            lambda M=M: (lut(16), rand_ids(M)), exact=True)
         # bin: the valid rows' sectors, the queries' words, ids, outputs;
         # an XOR, a popcount and an add a word
         add("bin_dist", f"Q={Q} B={M} nw={nw} n={n}", M == 24, False,
@@ -481,6 +503,31 @@ def kernel_cases(inp: dict) -> "list[Case]":
             lambda ids, M=M: (row_bytes(ids, nw * 4) + Q * nw * 4
                               + Q * M * 8, 3.0 * valid(ids) * nw),
             lambda M=M: (rand_ids(M),), exact=True)
+
+    # ---- the PQ gathers' general paths at M=24, held exactly: code rows
+    # at a 1-byte offset into a flat buffer (the byte path), PQ8 at m=12
+    # over K=64 tables, PQ4 over u8-requantized tables (the pq4+u8lut
+    # kind's, where many sums tie exactly) ----
+    M = 24
+    codes12 = torch.randint(0, 64, (n, 12), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    for note, cds, k, mm in ((" codes at offset 1", offset_view(pcodes), K, m),
+                             ("", codes12, 64, 12)):
+        add("pq_adc", f"Q={Q} B={M} m={mm} K={k} n={n}{note}", False, False,
+            lambda t, ids, c=cds: ops.pq_adc(t, c, ids),
+            lambda t, ids, c=cds: ref.pq_adc_ref(t, c, ids),
+            lambda t, ids, c=cds: (pq_bytes(c, ids) + Q * M * 8,
+                                   float(valid(ids) * c.shape[1])),
+            lambda k=k, mm=mm: (lut(k, mm), rand_ids(M)), exact=True)
+    for note, cds, u8 in ((" codes at offset 1", offset_view(p4codes), False),
+                          (" u8 tables", p4codes, True)):
+        add("pq4_adc", f"Q={Q} B={M} m={m} K=16 n={n}{note}", False, False,
+            lambda t, ids, c=cds: ops.pq4_adc(t, c, ids),
+            lambda t, ids, c=cds: ref.pq4_adc_ref(t, c, ids),
+            lambda t, ids, c=cds: (pq_bytes(c, ids, nibbles=True)
+                                   + Q * M * 8, float(valid(ids) * m)),
+            lambda u8=u8: (u8_tables(lut(16)) if u8 else lut(16),
+                           rand_ids(M)), exact=True)
 
     # ---- the fused steps; bytes as the gathers', with (Q, T) sorted
     # dists and ids and (Q, W) bests and ties out ----
@@ -538,7 +585,7 @@ def kernel_cases(inp: dict) -> "list[Case]":
                     t, pcodes, ids, L, W),
                 lambda t, ids, io=io: (pq_bytes(pcodes, ids) + io,
                                        float(valid(ids) * m)),
-                lambda W=W, M=M: (lut(), tied_ids(W, M)))
+                lambda W=W, M=M: (lut(), tied_ids(W, M)), exact=True)
             add("fused_expand_pq4", f"Q={Q} W={W} M={M} L={L} m={m} K=16 "
                 f"n={n}", True, True,
                 lambda t, ids, L=L, W=W: ops.fused_expand_pq4(
@@ -547,7 +594,7 @@ def kernel_cases(inp: dict) -> "list[Case]":
                     t, p4codes, ids, L, W),
                 lambda t, ids, io=io: (pq_bytes(p4codes, ids, nibbles=True)
                                        + io, float(valid(ids) * m)),
-                lambda W=W, M=M: (lut(16), tied_ids(W, M)))
+                lambda W=W, M=M: (lut(16), tied_ids(W, M)), exact=True)
             # the bin preset's queue is L=320 (T = C = 96 all the same)
             for Lb in (L, 320):
                 add("fused_expand_bin", f"Q={Q} W={W} M={M} L={Lb} nw={nw} "

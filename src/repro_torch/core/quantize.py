@@ -174,11 +174,8 @@ def pq_make_dist_fn(codes: torch.Tensor, m: int, impl: str = "ref"):
         return fn
 
     def fn(tables, nbr_ids):
-        lut = tables.reshape(tables.shape[0], m, K)
-        c = codes[torch.clamp(nbr_ids, min=0).long()].long()   # (Q, B, m)
-        g = torch.gather(lut[:, None, :, :].expand(-1, c.shape[1], -1, -1),
-                         3, c[..., None])[..., 0]
-        return torch.sum(g, dim=-1)
+        return kref.adc_sums(tables.reshape(tables.shape[0], m, K),
+                             codes[torch.clamp(nbr_ids, min=0).long()].long())
     return fn
 
 

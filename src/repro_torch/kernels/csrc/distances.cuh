@@ -16,14 +16,17 @@
 //                  sum_j lut[j * 16 + code[j]]           (pq4_adc)
 //   thread_adc_n,  thread_adc and thread_adc4 over U rows at once, the
 //   thread_adc4_n  same sums                             (the list scans)
+//   thread_adc_ldg, thread_adc and thread_adc4 with the table in device
+//   thread_adc4_ldg memory, a chunk's entries loaded before any is added,
+//                  the same sums                         (pq_adc, pq4_adc)
 //   thread_hamming one thread, one nw-word sign code:
 //                  sum_w popc(q[w] ^ code[w])            (bin_dist)
 //
 // metric 0 is l2 (sum of squared differences), 1 the negated inner
 // product. The query row, scale, zero, the LUT and the query's sign words
-// are read from shared memory (bin_dist reads its query words from device
-// memory), database rows and codes from device memory through the
-// read-only path (__ldg).
+// are read from shared memory (bin_dist reads its query words, the _ldg
+// scorers their LUT from device memory), database rows and codes from
+// device memory through the read-only path (__ldg).
 #pragma once
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -138,6 +141,48 @@ __device__ __forceinline__ float thread_adc(
   return acc;
 }
 
+// thread_adc's sum (from +0.0, j = 0 .. m-1 in order) with lut, the
+// query's (m, K) table, in device memory: the code bytes of kChunk
+// subspaces are loaded, then all of their table entries through the
+// read-only path, before any is added, so a chunk's reads are in flight
+// at once. vec16: m % 16 == 0 and 16-byte aligned code rows.
+template <int kChunk>
+__device__ __forceinline__ float thread_adc_ldg(
+    const unsigned char* __restrict__ codes, int id,
+    const float* __restrict__ lut, int m, int K, bool vec16) {
+  static_assert(kChunk % 16 == 0, "kChunk: whole 16-byte code loads");
+  const unsigned char* row = codes + (size_t)id * m;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < m; j0 += kChunk) {
+    unsigned int c[kChunk];
+    if (vec16) {
+#pragma unroll
+      for (int g = 0; g < kChunk / 16; ++g) {
+        const uint4 w = j0 + 16 * g < m
+                            ? __ldg(reinterpret_cast<const uint4*>(
+                                  row + j0 + 16 * g))
+                            : make_uint4(0u, 0u, 0u, 0u);
+        const unsigned int words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int t = 0; t < 16; ++t)
+          c[16 * g + t] = (words[t >> 2] >> ((t & 3) * 8)) & 0xffu;
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < kChunk; ++t)
+        c[t] = j0 + t < m ? __ldg(row + j0 + t) : 0u;
+    }
+    float v[kChunk];
+#pragma unroll
+    for (int t = 0; t < kChunk; ++t)
+      v[t] = j0 + t < m ? __ldg(lut + (j0 + t) * K + c[t]) : 0.f;
+#pragma unroll
+    for (int t = 0; t < kChunk; ++t)
+      if (j0 + t < m) acc += v[t];
+  }
+  return acc;
+}
+
 // thread_adc over U rows at once, each row's sum exactly thread_adc's (from
 // +0.0, j = 0 .. m-1 in order); the U sums are independent chains, so
 // their table reads overlap. Rows with on[u] false are not read (out[u]
@@ -204,6 +249,57 @@ __device__ __forceinline__ float thread_adc4(
       const unsigned int c = __ldg(row + b);
       acc += lut[2 * b * 16 + (c & 15u)];
       acc += lut[(2 * b + 1) * 16 + (c >> 4)];
+    }
+  }
+  return acc;
+}
+
+// thread_adc4's sum (from +0.0, j = 0 .. m-1 in order) with lut, the
+// query's (m, 16) table, in device memory, as thread_adc_ldg is
+// thread_adc's: the code bytes of kChunk subspaces, then all of their
+// table entries, before any is added. vec8: m % 16 == 0 and 8-byte
+// aligned code rows.
+template <int kChunk>
+__device__ __forceinline__ float thread_adc4_ldg(
+    const unsigned char* __restrict__ codes, int id,
+    const float* __restrict__ lut, int m, bool vec8) {
+  static_assert(kChunk % 16 == 0, "kChunk: whole 8-byte code loads");
+  constexpr int kBytes = kChunk / 2;
+  const int mh = m >> 1;
+  const unsigned char* row = codes + (size_t)id * mh;
+  float acc = 0.f;
+  for (int b0 = 0; b0 < mh; b0 += kBytes) {
+    unsigned int c[kBytes];
+    if (vec8) {
+#pragma unroll
+      for (int g = 0; g < kBytes / 8; ++g) {
+        const uint2 w = b0 + 8 * g < mh
+                            ? __ldg(reinterpret_cast<const uint2*>(
+                                  row + b0 + 8 * g))
+                            : make_uint2(0u, 0u);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          c[8 * g + t] = ((t < 4 ? w.x : w.y) >> ((t & 3) * 8)) & 0xffu;
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < kBytes; ++t)
+        c[t] = b0 + t < mh ? __ldg(row + b0 + t) : 0u;
+    }
+    float v[kChunk];
+#pragma unroll
+    for (int t = 0; t < kBytes; ++t) {
+      const int j = 2 * (b0 + t);
+      v[2 * t] = b0 + t < mh ? __ldg(lut + j * 16 + (c[t] & 15u)) : 0.f;
+      v[2 * t + 1] =
+          b0 + t < mh ? __ldg(lut + (j + 1) * 16 + (c[t] >> 4)) : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < kBytes; ++t) {
+      if (b0 + t < mh) {
+        acc += v[2 * t];
+        acc += v[2 * t + 1];
+      }
     }
   }
   return acc;

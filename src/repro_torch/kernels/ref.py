@@ -64,16 +64,35 @@ def sq_gather_dist_ref(q: torch.Tensor, codes: torch.Tensor,
     return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
 
 
+def sum_in_order(g: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis from +0.0, j = 0 .. m-1 in order: the order
+    of the reference's jnp.sum on the CPU and of the CUDA kernels, so all
+    three give the same floats (a row whose terms are all -0.0 sums to
+    +0.0). torch.sum adds in another order and differs in the last bit.
+    With u8-requantized PQ4 tables many sums tie exactly, and a sum in
+    another order would break those ties differently."""
+    out = g[..., 0] + 0.0
+    for j in range(1, g.shape[-1]):
+        out = out + g[..., j]
+    return out
+
+
+def adc_sums(lut: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(Q, m, K) tables, (Q, B, m) int64 codes -> (Q, B) ADC sums
+    sum_j lut[q, j, c[q, b, j]], in order (sum_in_order)."""
+    g = torch.gather(lut[:, None, :, :].expand(-1, c.shape[1], -1, -1), 3,
+                     c[..., None])[..., 0]
+    return sum_in_order(g)
+
+
 def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor,
                ids: torch.Tensor) -> torch.Tensor:
     """(Q, m, K) luts, (n, m) uint8 codes, (Q, B) ids -> (Q, B) ADC dists.
 
-    dist[q, b] = sum_j lut[q, j, codes[ids[q, b], j]]; invalid ids -> +inf.
+    dist[q, b] = sum_j lut[q, j, codes[ids[q, b], j]], summed in order
+    (sum_in_order); invalid ids -> +inf.
     """
-    c = codes[torch.clamp(ids, min=0).long()].long()           # (Q, B, m)
-    g = torch.gather(lut[:, None, :, :].expand(-1, c.shape[1], -1, -1), 3,
-                     c[..., None])[..., 0]
-    out = torch.sum(g, dim=-1)
+    out = adc_sums(lut, codes[torch.clamp(ids, min=0).long()].long())
     return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
 
 
@@ -88,18 +107,10 @@ def _unpack_nibbles_ref(packed: torch.Tensor) -> torch.Tensor:
 def pq4_adc_ref(lut: torch.Tensor, packed: torch.Tensor,
                 ids: torch.Tensor) -> torch.Tensor:
     """(Q, m, 16) luts, (n, m//2) u8 nibble-packed codes, (Q, B) ids ->
-    (Q, B) ADC dists; invalid ids -> +inf. Unpack-then-pq_adc, summed
-    from +0.0 over j = 0 .. m-1 in order: the order of the reference's
-    jnp.sum on the CPU and of the CUDA kernel, so all three give the same
-    floats (a code whose terms are all -0.0 sums to +0.0). With
-    u8-requantized tables many sums tie exactly, and a sum in another
-    order would break those ties differently."""
-    c = _unpack_nibbles_ref(packed[torch.clamp(ids, min=0).long()])
-    g = torch.gather(lut[:, None, :, :].expand(-1, c.shape[1], -1, -1), 3,
-                     c[..., None])[..., 0]
-    out = g[..., 0] + 0.0
-    for j in range(1, g.shape[-1]):
-        out = out + g[..., j]
+    (Q, B) ADC dists; invalid ids -> +inf. Unpack-then-pq_adc, summed in
+    order (sum_in_order)."""
+    out = adc_sums(lut, _unpack_nibbles_ref(
+        packed[torch.clamp(ids, min=0).long()]))
     return torch.where(ids >= 0, out, torch.full_like(out, float("inf")))
 
 
@@ -226,16 +237,11 @@ def _by_query_chunks(score, probe_ids: torch.Tensor, width: int, L: int):
 
 def _adc_lists(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(q, Pl, m, K) tables, (q, P, max_len, m) int64 codes -> (q, P,
-    max_len) ADC sums from +0.0 over j = 0 .. m-1 in order, as the CUDA
-    kernel sums (see pq4_adc_ref)."""
+    max_len) ADC sums, in order (sum_in_order)."""
     q, P, N, m = codes.shape
     t = luts.expand(q, P, m, luts.shape[-1])[:, :, None]
-    g = torch.gather(t.expand(q, P, N, m, t.shape[-1]), 4,
-                     codes[..., None])[..., 0]
-    out = g[..., 0] + 0.0
-    for j in range(1, m):
-        out = out + g[..., j]
-    return out
+    return sum_in_order(torch.gather(t.expand(q, P, N, m, t.shape[-1]), 4,
+                                     codes[..., None])[..., 0])
 
 
 def ivf_scan_ref(luts: torch.Tensor, list_codes: torch.Tensor,

@@ -257,9 +257,10 @@ def test_cuda_kernels_match_plain(cuda, metric):
         for part in _quant_case(4, 64, 5000, 96, 16))
     _close(tops.sq_gather_dist(q, codes, scale, zero, ids, metric=metric),
            tref.sq_gather_dist_ref(q, codes, scale, zero, ids, metric))
-    _close(tops.pq_adc(lut, pcodes, ids), tref.pq_adc_ref(lut, pcodes, ids))
-    _close(tops.pq4_adc(lut4, packed, ids),
-           tref.pq4_adc_ref(lut4, packed, ids))
+    assert torch.equal(tops.pq_adc(lut, pcodes, ids),
+                       tref.pq_adc_ref(lut, pcodes, ids))
+    assert torch.equal(tops.pq4_adc(lut4, packed, ids),
+                       tref.pq4_adc_ref(lut4, packed, ids))
     assert torch.equal(tops.bin_dist(qw, words, ids),
                        tref.bin_dist_ref(qw, words, ids))
     for out, exp in (
@@ -295,6 +296,54 @@ def test_cuda_kernels_match_plain(cuda, metric):
     after = tops.launch_counts()
     assert set(after) == set(KERNELS)
     assert all(after[k] == before[k] + 1 for k in after)
+
+
+def _bits_equal(a, b):
+    """Bit for bit, the sign of a zero included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _unaligned(codes):
+    """`codes` copied one byte into a flat buffer: rows not aligned, so the
+    kernels read them a byte at a time."""
+    flat = torch.zeros(codes.numel() + 1, dtype=codes.dtype,
+                       device=codes.device)
+    flat[1:] = codes.reshape(-1)
+    return flat[1:].view(codes.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m,K", [
+    ("pq_adc", m, K) for m in (8, 12, 16, 32) for K in (16, 256)] + [
+    ("pq4_adc", m, 16) for m in (8, 16, 32)])
+@pytest.mark.parametrize("B", [1, 8, 24, 33, 64])
+def test_cuda_pq_gathers_equal_plain(cuda, kernel, m, K, B):
+    """pq_adc and pq4_adc equal their plain versions bit for bit (both sum
+    from +0.0 over j in order): query 0's ids all -1, query 1's one
+    repeated id, every table's entry 0 of each subspace -0.0 and every
+    seventh code row all zeros (a sum of -0.0 terms, +0.0), code rows
+    aligned and at a 1-byte offset."""
+    r = np.random.default_rng(m * K + B)
+    Q, n = 40, 3000
+    lut = r.normal(size=(Q, m, K)).astype(np.float32)
+    lut[:, :, 0] = -0.0
+    width = m if kernel == "pq_adc" else m // 2
+    codes = r.integers(0, K if kernel == "pq_adc" else 256,
+                       size=(n, width)).astype(np.uint8)
+    codes[::7] = 0
+    ids = r.integers(0, n, size=(Q, B)).astype(np.int32)
+    ids[r.random((Q, B)) < 0.1] = -1
+    ids[0] = -1
+    ids[1] = 7 * 5
+    lut, codes, ids = (torch.as_tensor(a, device=cuda)
+                       for a in (lut, codes, ids))
+    fn, plain = ((tops.pq_adc, tref.pq_adc_ref) if kernel == "pq_adc"
+                 else (tops.pq4_adc, tref.pq4_adc_ref))
+    for c in (codes, _unaligned(codes)):
+        out, exp = fn(lut, c, ids), plain(lut, c, ids)
+        assert _bits_equal(out, exp)
+        assert torch.isinf(out[0]).all() and (out[1] == 0).all()
+        assert not torch.signbit(out[1]).any()
 
 
 @pytest.mark.cuda

@@ -91,8 +91,12 @@ def test_sq_gather_dist_matches_reference(metric, Q, M, n, d):
 
 
 @pytest.mark.parametrize("Q,B,n,m", [(4, 8, 100, 16), (5, 24, 300, 8),
-                                     (3, 7, 50, 12)])
+                                     (3, 7, 50, 12), (5, 24, 300, 16),
+                                     (3, 24, 200, 32)])
 def test_pq_adc_matches_reference(Q, B, n, m):
+    """The plain version equals the reference's jnp oracle bit for bit
+    (both sum from +0.0 over j in order); the Pallas kernel sums m*K
+    one-hot terms, so it is held to the tolerance."""
     lut, codes, ids = _pq_case(Q * B + m, Q, B, n, m)
     out = tops.pq_adc(_t(lut), _t(codes), _t(ids)).numpy()
     j = jnp.asarray
@@ -100,7 +104,23 @@ def test_pq_adc_matches_reference(Q, B, n, m):
     oracle = np.asarray(jref.pq_adc_ref(j(lut), j(codes), j(ids)))
     assert np.array_equal(np.isinf(out), ids < 0)
     np.testing.assert_allclose(out, kern, **TOL)
-    np.testing.assert_allclose(out, oracle, **TOL)
+    assert np.array_equal(out, oracle)
+
+
+def test_pq_adc_negative_zero_rows():
+    """A code whose terms are all -0.0 sums to +0.0, as jnp.sum and the
+    CUDA kernel's sum from +0.0 give it: the sign is held exactly."""
+    lut, codes, ids = _pq_case(11, 3, 8, 40, 16)
+    lut[..., 0] = -0.0
+    codes[::2] = 0
+    out = tops.pq_adc(_t(lut), _t(codes), _t(ids)).numpy()
+    j = jnp.asarray
+    oracle = np.asarray(jref.pq_adc_ref(j(lut), j(codes), j(ids)))
+    assert np.array_equal(np.signbit(out), np.signbit(oracle))
+    assert np.array_equal(out, oracle)
+    zero = (ids >= 0) & (ids % 2 == 0)
+    assert zero.any() and (out[zero] == 0).all() and \
+        not np.signbit(out[zero]).any()
 
 
 def _same_block(out, exps):
