@@ -299,8 +299,9 @@ def row_bytes(ids, width: int) -> int:
 
 
 def offset_view(codes):
-    """`codes` copied to a view one byte into a flat buffer: its rows are
-    not aligned, so the kernels read them a byte at a time."""
+    """`codes` copied to a view one element into a flat buffer (one byte
+    for u8 codes, 4 bytes for f32 rows): its rows are not aligned, so the
+    kernels read them a byte (a float) at a time."""
     import torch
     flat = torch.empty(codes.numel() + 1, dtype=codes.dtype,
                        device=codes.device)
@@ -417,8 +418,8 @@ def kernel_cases(inp: dict) -> "list[Case]":
     fused_expand and fused_expand_sq at C=96: the traversal's share,
     TRAVERSAL_VALID); the fused steps' ids repeat rows across
     expansions, so exact ties occur (and Hamming distances of random signs
-    tie everywhere). The PQ gathers also run at M=24 on their general
-    paths. The bin kernels, the PQ and PQ4 gathers and fused steps (which
+    tie everywhere). The gathers also run at M=24 on their general paths,
+    and gather_dist at the re-rank depths M=40 and M=640. The bin kernels, the PQ and PQ4 gathers and fused steps (which
     sum as their plain versions do) and the list scans must equal their
     plain versions. Each case holds enough argument sets that they gather
     twice the card's L2 in all. The kernels are called through `ops`, so
@@ -665,6 +666,39 @@ def kernel_cases(inp: dict) -> "list[Case]":
             lambda mt=mt: ref.batch_dist_ref(q, db, mt),
             lambda: ((Q * d + n * d + Q * n) * 4, 2.0 * Q * n * d),
             lambda: ())
+
+    # ---- the gathers where else they run (drawn last, so the cases above
+    # keep their inputs): gather_dist at the exact re-rank depths M=40
+    # (the quantized kinds' default) and M=640 (bin at L=640), on rows at
+    # a 4-byte offset (float units) and at d=100 (float4 in one pass of
+    # 32 units); sq_gather_dist on codes at a 1-byte offset (byte units).
+    # Bytes as the gathers' above ----
+    db100 = torch.nn.functional.normalize(
+        torch.randn((n, 100), generator=g, device=dev), dim=1)
+    q100 = torch.nn.functional.normalize(
+        torch.randn((Q, 100), generator=g, device=dev), dim=1)
+    for M, rows, qq, note in ((40, db, q, ""), (640, db, q, ""),
+                              (24, offset_view(db), q, " rows at offset 4"),
+                              (24, db100, q100, "")):
+        dd = rows.shape[1]
+        io = Q * M * 8 + Q * dd * 4
+        add("gather_dist", f"Q={Q} M={M} d={dd} n={n} ip{note}", False,
+            False,
+            lambda ids, r=rows, qq=qq: ops.gather_dist(qq, r, ids,
+                                                       metric="ip"),
+            lambda ids, r=rows, qq=qq: ref.gather_dist_ref(qq, r, ids, "ip"),
+            lambda ids, io=io, dd=dd: (valid(ids) * dd * 4 + io,
+                                       3.0 * valid(ids) * dd),
+            lambda M=M: (rand_ids(M),))
+    M, codes1 = 24, offset_view(codes)
+    add("sq_gather_dist", f"Q={Q} M={M} d={d} n={n} ip codes at offset 1",
+        False, False,
+        lambda ids: ops.sq_gather_dist(q, codes1, scale, zero, ids,
+                                       metric="ip"),
+        lambda ids: ref.sq_gather_dist_ref(q, codes1, scale, zero, ids, "ip"),
+        lambda ids: (valid(ids) * d + Q * M * 8 + Q * d * 4 + d * 8,
+                     4.0 * valid(ids) * d),
+        lambda: (rand_ids(M),))
     return cases
 
 

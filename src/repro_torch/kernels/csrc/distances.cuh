@@ -2,14 +2,19 @@
 // kernels (gather_dist.cu, pq_adc.cu, pq4_scan.cu, bin_hamming.cu), the
 // list scans (ivf_scan.cu) and the fused beam steps (traverse_step.cu).
 // A PQ, PQ4 or Hamming distance is one piece of arithmetic wherever it is
-// computed. The fused f32 and SQ steps score a row in groups of 8 lanes
-// (traverse_step.cu) with sq_term but not warp_dist_f32/warp_dist_sq, so
-// their sums run in another order than a gathered distance's and the two
-// may differ in the last bit.
+// computed. The f32 and SQ scorers of gather_dist.cu and traverse_step.cu
+// split a row into units and a lane's share of a row into the terms of
+// its units, in order, with the helpers below; where both give a row
+// the same lanes and units (f32: 8 lanes, float4 or float units), a
+// gathered distance equals the fused step's bit for bit.
 //
-//   warp_dist_f32  one warp, one f32 database row        (gather_dist)
-//   warp_dist_sq   one warp, one u8 row dequantized as
-//                  code * scale + zero                   (sq_gather_dist)
+//   F32Unit<U>     a row unit of U floats: float4 (U = 4) or float
+//   f32_unit<IP>   the terms of one f32 unit, in order:
+//                  (r - q)^2 (l2) or r * q (ip), fused multiply-adds
+//   SqUnit<UB>     a code unit of UB bytes: uint4, uint2 or u32 words
+//   word, code_at  word i of a unit; byte i of a word as a float, exactly
+//   sq_term        one SQ term, the code dequantized as code*scale + zero
+//   sq_word<IP>    the four terms of one code word, in order
 //   thread_adc     one thread, one m-byte PQ code:
 //                  sum_j lut[j * K + code[j]]            (pq_adc)
 //   thread_adc4    one thread, one m/2-byte nibble-packed PQ4 code:
@@ -23,9 +28,9 @@
 //                  sum_w popc(q[w] ^ code[w])            (bin_dist)
 //
 // metric 0 is l2 (sum of squared differences), 1 the negated inner
-// product. The query row, scale, zero, the LUT and the query's sign words
-// are read from shared memory (bin_dist reads its query words, the _ldg
-// scorers their LUT from device memory), database rows and codes from
+// product (the callers negate the sum). The fused steps read the query,
+// scale, zero and LUT from shared memory, the gathers from device memory
+// through the read-only path; database rows and codes are read from
 // device memory through the read-only path (__ldg).
 #pragma once
 #include <cuda_runtime.h>
@@ -33,47 +38,52 @@
 
 namespace kbest {
 
-__device__ __forceinline__ float warp_sum(float acc) {
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
+template <int U> struct F32Unit { using T = float4; };
+template <> struct F32Unit<1> { using T = float; };
+
+template <bool IP>
+__device__ __forceinline__ void f32_term(float r, float qv, float& acc) {
+  if (IP) {
+    acc = fmaf(r, qv, acc);
+  } else {
+    const float a = r - qv;
+    acc = fmaf(a, a, acc);
+  }
 }
 
-// Every lane of the warp calls it with the same id >= 0; every lane gets
-// the distance. vec4: d % 4 == 0 and 16-byte aligned rows and query.
-__device__ __forceinline__ float warp_dist_f32(const float* __restrict__ db,
-                                               int id,
-                                               const float* __restrict__ qs,
-                                               int d, int metric, bool vec4,
-                                               int lane) {
-  float acc = 0.f;
-  const float* row = db + (size_t)id * d;
-  if (vec4) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    const float4* q4 = reinterpret_cast<const float4*>(qs);
-    for (int k = lane; k < (d >> 2); k += 32) {
-      float4 r = __ldg(r4 + k);
-      float4 v = q4[k];
-      if (metric == 0) {
-        float a = r.x - v.x, b = r.y - v.y, c = r.z - v.z, e = r.w - v.w;
-        acc += a * a + b * b + c * c + e * e;
-      } else {
-        acc += r.x * v.x + r.y * v.y + r.z * v.z + r.w * v.w;
-      }
-    }
-  } else {
-    for (int k = lane; k < d; k += 32) {
-      float r = __ldg(row + k);
-      if (metric == 0) {
-        float a = r - qs[k];
-        acc += a * a;
-      } else {
-        acc += r * qs[k];
-      }
-    }
-  }
-  acc = warp_sum(acc);
-  return metric == 0 ? acc : -acc;
+template <bool IP>
+__device__ __forceinline__ void f32_unit(const float4& r, const float4& v,
+                                         float& acc) {
+  f32_term<IP>(r.x, v.x, acc);
+  f32_term<IP>(r.y, v.y, acc);
+  f32_term<IP>(r.z, v.z, acc);
+  f32_term<IP>(r.w, v.w, acc);
+}
+
+template <bool IP>
+__device__ __forceinline__ void f32_unit(float r, float v, float& acc) {
+  f32_term<IP>(r, v, acc);
+}
+
+template <int UB> struct SqUnit { using T = unsigned int; };
+template <> struct SqUnit<16> { using T = uint4; };
+template <> struct SqUnit<8> { using T = uint2; };
+
+__device__ __forceinline__ unsigned int word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ unsigned int word(const uint2& v, int i) {
+  return i == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ unsigned int word(unsigned int v, int) {
+  return v;
+}
+
+// Byte i of w as a float, exactly: 2^23 + byte built by a byte permute,
+// less 2^23 (an integer-to-float conversion runs at a quarter of the rate).
+__device__ __forceinline__ float code_at(unsigned int w, int i) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | i)) -
+         8388608.f;
 }
 
 __device__ __forceinline__ void sq_term(float c, float s, float z, float qv,
@@ -87,34 +97,17 @@ __device__ __forceinline__ void sq_term(float c, float s, float z, float qv,
   }
 }
 
-// As warp_dist_f32 over a u8 code row; ss/zs are the (d,) scale and zero.
-// vec4: d % 4 == 0 and 4-byte aligned code rows (one 32-bit load a lane).
-__device__ __forceinline__ float warp_dist_sq(
-    const unsigned char* __restrict__ codes, int id,
-    const float* __restrict__ qs, const float* __restrict__ ss,
-    const float* __restrict__ zs, int d, int metric, bool vec4, int lane) {
-  float acc = 0.f;
-  const unsigned char* row = codes + (size_t)id * d;
-  if (vec4) {
-    const uchar4* r4 = reinterpret_cast<const uchar4*>(row);
-    for (int k = lane; k < (d >> 2); k += 32) {
-      const uchar4 c = __ldg(r4 + k);
-      const int b = k << 2;
-      sq_term(static_cast<float>(c.x), ss[b], zs[b], qs[b], metric, acc);
-      sq_term(static_cast<float>(c.y), ss[b + 1], zs[b + 1], qs[b + 1],
-              metric, acc);
-      sq_term(static_cast<float>(c.z), ss[b + 2], zs[b + 2], qs[b + 2],
-              metric, acc);
-      sq_term(static_cast<float>(c.w), ss[b + 3], zs[b + 3], qs[b + 3],
-              metric, acc);
-    }
-  } else {
-    for (int k = lane; k < d; k += 32)
-      sq_term(static_cast<float>(__ldg(row + k)), ss[k], zs[k], qs[k], metric,
-              acc);
-  }
-  acc = warp_sum(acc);
-  return metric == 0 ? acc : -acc;
+// The terms of the four code bytes of w, whose dimensions' query, scale
+// and zero are qv, s and z, in order.
+template <bool IP>
+__device__ __forceinline__ void sq_word(unsigned int w, const float4& qv,
+                                        const float4& s, const float4& z,
+                                        float& acc) {
+  constexpr int metric = IP ? 1 : 0;
+  sq_term(code_at(w, 0), s.x, z.x, qv.x, metric, acc);
+  sq_term(code_at(w, 1), s.y, z.y, qv.y, metric, acc);
+  sq_term(code_at(w, 2), s.z, z.z, qv.z, metric, acc);
+  sq_term(code_at(w, 3), s.w, z.w, qv.w, metric, acc);
 }
 
 // One thread, one code row (id >= 0), summed over j = 0 .. m-1 in order.

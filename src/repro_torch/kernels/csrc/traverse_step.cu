@@ -146,24 +146,11 @@ __device__ __forceinline__ void score_grouped(const Rows& rows,
   }
 }
 
-template <bool IP>
-__device__ __forceinline__ void f32_term(float r, float qv, float& acc) {
-  if (IP) {
-    acc = fmaf(r, qv, acc);
-  } else {
-    const float a = r - qv;
-    acc = fmaf(a, a, acc);
-  }
-}
-
-template <int U> struct F32Unit { using T = float4; };
-template <> struct F32Unit<1> { using T = float; };
-
 // ---- distance functors: stage(ex, qi), then score(ex, idrow, C, out, ids) --
 // U = 4: float4 units (d % 4 == 0, 16-byte aligned rows); U = 1: floats.
 template <int V, int U, bool IP>
 struct F32Dist {
-  using Unit = typename F32Unit<U>::T;
+  using Unit = typename kbest::F32Unit<U>::T;
   static constexpr bool kNegate = IP;
   static constexpr int kBlock = kGroupBlock, kMinBlocks = kGroupMinBlocks;
   static constexpr int kRounds = kF32FlightRegs / (V * U) > 0
@@ -180,19 +167,14 @@ struct F32Dist {
                       float (&acc)[RB]) const {
     const float4 v = reinterpret_cast<const float4*>(ex)[u];
 #pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      f32_term<IP>(r[b].x, v.x, acc[b]);
-      f32_term<IP>(r[b].y, v.y, acc[b]);
-      f32_term<IP>(r[b].z, v.z, acc[b]);
-      f32_term<IP>(r[b].w, v.w, acc[b]);
-    }
+    for (int b = 0; b < RB; ++b) kbest::f32_unit<IP>(r[b], v, acc[b]);
   }
   template <int RB>
   __device__ void dot(const float (&r)[RB], const float* ex, int u,
                       float (&acc)[RB]) const {
     const float v = ex[u];
 #pragma unroll
-    for (int b = 0; b < RB; ++b) f32_term<IP>(r[b], v, acc[b]);
+    for (int b = 0; b < RB; ++b) kbest::f32_unit<IP>(r[b], v, acc[b]);
   }
   __device__ void stage(float* ex, int qi) const {
     const float* qrow = q + (size_t)qi * d;
@@ -204,32 +186,11 @@ struct F32Dist {
   }
 };
 
-template <int UB> struct SqUnit { using T = unsigned int; };
-template <> struct SqUnit<16> { using T = uint4; };
-template <> struct SqUnit<8> { using T = uint2; };
-
-__device__ __forceinline__ unsigned int word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ unsigned int word(const uint2& v, int i) {
-  return i == 0 ? v.x : v.y;
-}
-__device__ __forceinline__ unsigned int word(unsigned int v, int) {
-  return v;
-}
-
-// Byte i of w as a float, exactly: 2^23 + byte built by a byte permute,
-// less 2^23 (an integer-to-float conversion runs at a quarter of the rate).
-__device__ __forceinline__ float code_at(unsigned int w, int i) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | i)) -
-         8388608.f;
-}
-
 // UB bytes a unit: 16, 8 or 4 (d % UB == 0 and UB-aligned rows), or 1.
 // ex holds the query, then scale, then zero (d floats each).
 template <int UB, bool IP>
 struct SqDist {
-  using Unit = typename SqUnit<UB>::T;
+  using Unit = typename kbest::SqUnit<UB>::T;
   static constexpr bool kNegate = IP;
   static constexpr int kBlock = kGroupBlock, kMinBlocks = kGroupMinBlocks;
   static constexpr int kV = UB == 16 ? 1 : 4;   // units a lane a pass
@@ -255,7 +216,8 @@ struct SqDist {
       const float qv = ex[u], s = ex[d + u], z = ex[2 * d + u];
 #pragma unroll
       for (int b = 0; b < RB; ++b)
-        kbest::sq_term(code_at(c[b], 0), s, z, qv, metric, acc[b]);
+        kbest::sq_term(kbest::code_at(c[b], 0), s, z, qv, metric,
+                       acc[b]);
     } else {
 #pragma unroll
       for (int i = 0; i < UB / 4; ++i) {
@@ -264,13 +226,8 @@ struct SqDist {
         const float4 s = *reinterpret_cast<const float4*>(ex + d + k);
         const float4 z = *reinterpret_cast<const float4*>(ex + 2 * d + k);
 #pragma unroll
-        for (int b = 0; b < RB; ++b) {
-          const unsigned int w = word(c[b], i);
-          kbest::sq_term(code_at(w, 0), s.x, z.x, qv.x, metric, acc[b]);
-          kbest::sq_term(code_at(w, 1), s.y, z.y, qv.y, metric, acc[b]);
-          kbest::sq_term(code_at(w, 2), s.z, z.z, qv.z, metric, acc[b]);
-          kbest::sq_term(code_at(w, 3), s.w, z.w, qv.w, metric, acc[b]);
-        }
+        for (int b = 0; b < RB; ++b)
+          kbest::sq_word<IP>(kbest::word(c[b], i), qv, s, z, acc[b]);
       }
     }
   }

@@ -303,13 +303,14 @@ def _bits_equal(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def _unaligned(codes):
-    """`codes` copied one byte into a flat buffer: rows not aligned, so the
-    kernels read them a byte at a time."""
-    flat = torch.zeros(codes.numel() + 1, dtype=codes.dtype,
+def _unaligned(codes, k=1):
+    """`codes` copied k elements into a flat buffer (one byte for u8
+    codes, one float for f32 rows): rows not aligned to more than that,
+    so the kernels read them in narrower units."""
+    flat = torch.zeros(codes.numel() + k, dtype=codes.dtype,
                        device=codes.device)
-    flat[1:] = codes.reshape(-1)
-    return flat[1:].view(codes.shape)
+    flat[k:] = codes.reshape(-1)
+    return flat[k:].view(codes.shape)
 
 
 @pytest.mark.cuda
@@ -344,6 +345,103 @@ def test_cuda_pq_gathers_equal_plain(cuda, kernel, m, K, B):
         assert _bits_equal(out, exp)
         assert torch.isinf(out[0]).all() and (out[1] == 0).all()
         assert not torch.signbit(out[1]).any()
+
+
+def _gather_case(seed, Q, M, n, d):
+    """q, db, ids as _case (10% of ids -1), query 0's ids all -1 and
+    query 1's one repeated id; _quant_case's SQ codes, scale and zero."""
+    q, db, ids = _case(seed, Q, M, n, d)
+    ids[0] = -1
+    ids[1] = 5
+    return (q, db, ids) + _quant_case(seed, Q, n, d, 16)[0]
+
+
+def _check_gathers(q, db, codes, scale, zero, ids, metric):
+    """Both gathers against their plain versions: distances to TOL, +inf
+    exactly where an id is -1, one launch each."""
+    before = tops.launch_counts()
+    out = tops.gather_dist(q, db, ids, metric=metric)
+    _close(out, tref.gather_dist_ref(q, db, ids, metric))
+    assert torch.equal(torch.isinf(out), ids < 0)
+    out = tops.sq_gather_dist(q, codes, scale, zero, ids, metric=metric)
+    _close(out, tref.sq_gather_dist_ref(q, codes, scale, zero, ids, metric))
+    assert torch.equal(torch.isinf(out), ids < 0)
+    after = tops.launch_counts()
+    assert after["gather_dist"] == before["gather_dist"] + 1
+    assert after["sq_gather_dist"] == before["sq_gather_dist"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("M", [1, 8, 24, 640])
+@pytest.mark.parametrize("d", [33, 96, 100, 128, 200])
+def test_cuda_gathers_match_plain(cuda, d, M, metric):
+    """gather_dist and sq_gather_dist on each of their unit paths (d = 33:
+    single floats and code bytes; 96: float4 and code words in one pass;
+    100, 128; 200: two passes) at the seed, step and re-rank depths;
+    Q = 37 queries, so Q*M is no multiple of a block's candidates at
+    M < 640."""
+    Q, n = 37, 3000
+    q, db, ids, codes, scale, zero = (
+        torch.as_tensor(a, device=cuda)
+        for a in _gather_case(d * 1000 + M, Q, M, n, d))
+    _check_gathers(q, db, codes, scale, zero, ids, metric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [96, 100, 128, 200])
+def test_cuda_gathers_offset_rows(cuda, d, metric):
+    """Rows one float into a flat buffer (float units), codes 1, 2, 4 and
+    8 bytes in (bytes at 1 and 2, code words at 4 and 8), and queries,
+    scale and zero one float in (read a float at a time)."""
+    Q, M, n = 37, 24, 3000
+    q, db, ids, codes, scale, zero = (
+        torch.as_tensor(a, device=cuda)
+        for a in _gather_case(d, Q, M, n, d))
+    _check_gathers(q, _unaligned(db), codes, scale, zero, ids, metric)
+    for k in (1, 2, 4, 8):
+        _check_gathers(q, db, _unaligned(codes, k), scale, zero, ids, metric)
+    _check_gathers(_unaligned(q), db, codes, _unaligned(scale),
+                   _unaligned(zero), ids, metric)
+
+
+@pytest.mark.cuda
+def test_cuda_gathers_all_invalid_read_no_row(cuda):
+    """ids all -1 give +inf and read no row: the database and the codes are
+    empty tensors (no storage), so any row load would fault."""
+    Q, M, d = 9, 24, 96
+    q = torch.randn((Q, d), device=cuda)
+    ids = torch.full((Q, M), -1, dtype=torch.int32, device=cuda)
+    db = torch.empty((0, d), device=cuda)
+    codes = torch.empty((0, d), dtype=torch.uint8, device=cuda)
+    scale, zero = torch.ones(d, device=cuda), torch.zeros(d, device=cuda)
+    for metric in ("l2", "ip"):
+        for out in (tops.gather_dist(q, db, ids, metric=metric),
+                    tops.sq_gather_dist(q, codes, scale, zero, ids,
+                                        metric=metric)):
+            assert torch.isinf(out).all() and (out > 0).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_gathers_refuse_more_pairs_than_int32(cuda):
+    """Q*M = 2^31 pairs (past the int32 index of the flat layout): both
+    launchers refuse, nothing is launched."""
+    Q, M, d = 2 ** 16, 2 ** 15, 4
+    q = torch.zeros((Q, d), device=cuda)
+    ids = torch.empty((Q, M), dtype=torch.int32, device=cuda)
+    db = torch.zeros((8, d), device=cuda)
+    codes = torch.zeros((8, d), dtype=torch.uint8, device=cuda)
+    scale, zero = torch.ones(d, device=cuda), torch.zeros(d, device=cuda)
+    before = tops.launch_counts()
+    with pytest.raises(RuntimeError, match="^gather_dist launch failed"):
+        tops.gather_dist(q, db, ids)
+    with pytest.raises(RuntimeError, match="^sq_gather_dist launch failed"):
+        tops.sq_gather_dist(q, codes, scale, zero, ids)
+    assert tops.launch_counts() == before
+    del ids
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
@@ -504,6 +602,28 @@ def test_cuda_fused_expand_unaligned_rows(cuda, d, metric):
                                       metric=metric, L=L, n_beam=W),
                  tref.fused_expand_sq_ref(q, codes, scale, zero, ids, metric,
                                           L, W), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [7, 96, 100, 128, 200])
+def test_cuda_gather_dist_bit_equal_fused_expand(cuda, d, metric, offset):
+    """gather_dist sums a row over fused_expand's lanes and units, in the
+    same order (distances.cuh), so every distance the fused step sorts
+    equals gather_dist's for the same id bit for bit, rows aligned and
+    one float into a flat buffer (float units)."""
+    r = np.random.default_rng(d + offset)
+    Q, n, W, C = 16, 3000, 4, 96
+    q, db, _, _, _ = (torch.as_tensor(a, device=cuda) for a in
+                      _fused_rows(r, Q, n, d, "normal"))
+    ids = torch.as_tensor(_fused_ids(r, Q, C, W, n), device=cuda)
+    if offset:
+        db = _unaligned(db)
+    sd, si, _, _ = tops.fused_expand(q, db, ids, metric=metric, L=C,
+                                     n_beam=W)
+    assert _bits_equal(tops.gather_dist(q, db, si, metric=metric), sd)
+    assert torch.isfinite(sd[0]).any()
 
 
 @pytest.mark.cuda
