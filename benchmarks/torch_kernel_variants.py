@@ -11,7 +11,8 @@ Each variant's copy of `src/repro_torch/kernels/csrc/<source>.cu` is built
 (all at once, nvcc as `kernels/_build.py` builds, ptxas registers and
 spills kept) into `build/variants/<name>/`; then the cases of
 `chip_smoke.py`'s phase 2 (`kernel_inputs`, `kernel_cases`) whose kernel
-the source holds (`chip_smoke.KERNEL_SOURCES`) are checked against their
+the source holds (`chip_smoke.KERNEL_SOURCES`; with `--kernel`, only
+those kernels' cases) are checked against their
 plain versions once per variant and timed
 by phase 2's device clock (`graph_ms`), through every variant in order and
 again in reverse. Prints the card, each variant's registers a kernel
@@ -76,6 +77,9 @@ def main() -> int:
                     help="csrc/<source>.cu, e.g. traverse_step")
     ap.add_argument("--variant", nargs="+", action="append", required=True,
                     metavar=("NAME", "CONST=VALUE"))
+    ap.add_argument("--kernel", action="append",
+                    help="time only this kernel's cases (repeatable; "
+                         "default: every kernel the source holds)")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "src"))
@@ -86,7 +90,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import _build
     kernels = {name for name, (src, _, _) in cs.KERNEL_SOURCES.items()
-               if src == args.source}
+               if src == args.source and (not args.kernel
+                                          or name in args.kernel)}
     text = (_build.CSRC / f"{args.source}.cu").read_text()
     out_dir = _build.build_dir().parent / "variants"
     nvcc = _build._nvcc()

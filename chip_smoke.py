@@ -11,9 +11,13 @@ Phases:
      a library yardstick (the bin kernels, the PQ and PQ4 gathers and
      fused steps and the list scans exactly; the PQ gathers also on code
      rows at a 1-byte offset, `pq_adc` at m=12 over K=64 tables and
-     `pq4_adc` over u8-requantized tables; `ivf_scan` also at 4x the
-     ivf_pq preset's nprobe, and it and the bin scan on a tie storm and at
-     L = max_len);
+     `pq4_adc` over u8-requantized tables; `fused_expand_pq` also on code
+     rows at a 1-byte offset, at m=12 over K=64 and at m=32, at C=128 and
+     C=192, at the traversal's share of valid ids and on tables at a
+     4-byte offset; `bin_dist` also at nw=4 and 7 and at B=1 and 33;
+     `ivf_scan` also at 4x the ivf_pq preset's nprobe, and it and the bin
+     scan on a tie storm and at L = max_len), and the gathers' and fused
+     steps' fixed costs split by calls on ids that are all -1;
   3. the 50k anchor: deep_like at n=50,000 against the committed
      BENCH_traverse.json row (W=4, early termination on);
   4. the main path at Deep1M scale: KBest.add over 1,000,000 deep_like
@@ -419,11 +423,13 @@ def kernel_cases(inp: dict) -> "list[Case]":
     TRAVERSAL_VALID); the fused steps' ids repeat rows across
     expansions, so exact ties occur (and Hamming distances of random signs
     tie everywhere). The gathers also run at M=24 on their general paths,
-    and gather_dist at the re-rank depths M=40 and M=640. The bin kernels, the PQ and PQ4 gathers and fused steps (which
-    sum as their plain versions do) and the list scans must equal their
-    plain versions. Each case holds enough argument sets that they gather
-    twice the card's L2 in all. The kernels are called through `ops`, so
-    any checkout's can be timed."""
+    and gather_dist at the re-rank depths M=40 and M=640; fused_expand_pq
+    and bin_dist on their other paths (drawn last). The bin kernels, the
+    PQ and PQ4 gathers and fused steps (which sum as their plain versions
+    do) and the list scans must equal their plain versions. Each case
+    holds enough argument sets that they gather twice the card's L2 in
+    all. The kernels are called through `ops`, so any checkout's can be
+    timed."""
     import torch
     from repro_torch.kernels import ops, ref
     db, q, codes, scale, zero, pcodes, K, g = (
@@ -699,7 +705,121 @@ def kernel_cases(inp: dict) -> "list[Case]":
         lambda ids: (valid(ids) * d + Q * M * 8 + Q * d * 4 + d * 8,
                      4.0 * valid(ids) * d),
         lambda: (rand_ids(M),))
+
+    # ---- the PQ step's other paths, held exactly: code rows at a 1-byte
+    # offset (byte loads), m=12 over K=64 (a 3 KB table), m=32 (a 32 KB
+    # table), C=128 (the largest sort in registers), C=192 (W=8: the sort
+    # in shared memory), the traversal's share of valid ids, tables at a
+    # 4-byte offset. Bytes as the main PQ step's ----
+    codes32 = torch.randint(0, K, (n, 32), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint8)
+    for note, cds, k, W, M, L, invalid, off in (
+            (" codes at offset 1", offset_view(pcodes), K, 4, 24, MAIN_L,
+             0.05, False),
+            ("", codes12, 64, 4, 24, MAIN_L, 0.05, False),
+            ("", codes32, K, 4, 24, MAIN_L, 0.05, False),
+            ("", pcodes, K, 4, 32, 192, 0.05, False),
+            ("", pcodes, K, 8, 24, MAIN_L, 0.05, False),
+            (f" valid {TRAVERSAL_VALID:.0%}", pcodes, K, 4, 24, MAIN_L,
+             1 - TRAVERSAL_VALID, False),
+            (" tables at offset 4", pcodes, K, 4, 24, MAIN_L, 0.05, True)):
+        C, T, mm = W * M, min(L, W * M), cds.shape[1]
+        io = Q * C * 4 + Q * T * 8 + Q * W * 8
+        add("fused_expand_pq", f"Q={Q} W={W} M={M} L={L} m={mm} K={k} "
+            f"n={n}{note}", False, True,
+            lambda t, ids, c=cds, L=L, W=W: ops.fused_expand_pq(
+                t, c, ids, L=L, n_beam=W),
+            lambda t, ids, c=cds, L=L, W=W: ref.fused_expand_pq_ref(
+                t, c, ids, L, W),
+            lambda t, ids, c=cds, io=io: (pq_bytes(c, ids) + io,
+                                          float(valid(ids) * c.shape[1])),
+            lambda k=k, mm=mm, W=W, M=M, invalid=invalid, off=off: (
+                offset_view(lut(k, mm)) if off else lut(k, mm),
+                tied_ids(W, M, invalid)), exact=True)
+
+    # ---- bin_dist's other shapes, held exactly: nw = 4 and 7 (d = 128,
+    # 200), B = 1 and 33, query 0's ids all -1 and query 1's one id
+    # repeated. Bytes as bin_dist's above ----
+    def marked_ids(M):
+        ids = rand_ids(M)
+        ids[0] = -1
+        ids[1] = ids[1, 0].clone()
+        return ids
+
+    for words, M in ((nw, 1), (nw, 33), (4, 24), (7, 24)):
+        cw, qw = signs, qsigns
+        if words != nw:
+            cw, qw = (torch.randint(-2 ** 31, 2 ** 31, (k, words), generator=g,
+                                    device=dev, dtype=torch.int64)
+                      .to(torch.int32) for k in (n, Q))
+        add("bin_dist", f"Q={Q} B={M} nw={words} n={n} query 0 all -1, "
+            f"query 1 one id", False, False,
+            lambda ids, cw=cw, qw=qw: ops.bin_dist(qw, cw, ids),
+            lambda ids, cw=cw, qw=qw: ref.bin_dist_ref(qw, cw, ids),
+            lambda ids, M=M, words=words: (
+                row_bytes(ids, words * 4) + Q * words * 4 + Q * M * 8,
+                3.0 * valid(ids) * words),
+            lambda M=M: (marked_ids(M),), exact=True)
     return cases
+
+
+def chain_split(inp: dict, cases: dict) -> dict:
+    """What the gathers' and the fused steps' fixed costs are made of, by
+    phase 2's device clock (`graph_ms`), at Q=1000 over sets of ids that
+    fill twice the L2 by themselves, so every call's ids come from device
+    memory: the launch floor, a one-element `Tensor.zero_()` (a yardstick
+    only); `bin_dist` and `gather_dist` (ip) at B=24 with every id -1
+    (the launch, the id trip and the store; no row is read) and with 5% -1
+    (the row trip added); the PQ, PQ4 and bin fused steps at W=4, C=96
+    with every id -1 (the launch, the id trip, a block a query, its sort
+    and its outputs: what no scorer can cut); and `fused_expand_pq` on its
+    main case's ids with one set of tables for every call, which the L2
+    then holds, as it likely does across a traversal's iterations. The
+    main `cases` (by name) give the operands."""
+    import torch
+    from repro_torch.kernels import ops
+    q, db, signs, qsigns, g = (inp[k] for k in ("q", "db", "signs", "qsigns",
+                                                "g"))
+    Q, n, dev = q.shape[0], db.shape[0], q.device
+
+    def id_sets(B, invalid):
+        k = -(-2 * L2_BYTES // (Q * B * 4))
+        ids = torch.randint(0, n, (k, Q, B), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids[torch.rand((k, Q, B), generator=g, device=dev) < invalid] = -1
+        return ids
+
+    one = torch.zeros(1, device=dev)
+    split = dict(launch_floor_ms=graph_ms(lambda: one.zero_(), [()]))
+    none, some = id_sets(24, 1.0), id_sets(24, 0.05)
+    for name, fn in (("bin_dist", lambda ids: ops.bin_dist(qsigns, signs,
+                                                           ids)),
+                     ("gather_dist", lambda ids: ops.gather_dist(
+                         q, db, ids, metric="ip"))):
+        split[f"{name}_invalid_ms"] = graph_ms(fn, [(i,) for i in none])
+        split[f"{name}_ms"] = graph_ms(fn, [(i,) for i in some])
+    none = id_sets(96, 1.0)
+    for name in ("fused_expand_pq", "fused_expand_pq4", "fused_expand_bin"):
+        c = cases[name]
+        lead = [a[:-1] for a in c.sets]         # the tables, if any
+        split[f"{name}_invalid_ms"] = graph_ms(c.kern, [
+            (*lead[i % len(lead)], ids) for i, ids in enumerate(none)])
+    pq = cases["fused_expand_pq"]
+    split["fused_expand_pq_l2_tables_ms"] = graph_ms(
+        pq.kern, [(pq.sets[0][0], ids) for _, ids in pq.sets])
+    log(f"[chain] Q={Q}, ids from device memory, device ms: launch floor "
+        f"(a one-element zero_) {split['launch_floor_ms']:.4f}; "
+        + "; ".join(f"{name} B=24 every id -1 "
+                    f"{split[name + '_invalid_ms']:.4f}, 5% -1 "
+                    f"{split[name + '_ms']:.4f}" for name in ("bin_dist",
+                                                            "gather_dist")))
+    log("[chain] fused steps W=4 C=96, every id -1, device ms: " + ", ".join(
+        f"{name} {split[name + '_invalid_ms']:.4f}" for name in (
+            "fused_expand_pq", "fused_expand_pq4", "fused_expand_bin"))
+        + f"; fused_expand_pq on one set of tables (L2-warm) "
+        f"{split['fused_expand_pq_l2_tables_ms']:.4f}")
+    REPORT["chain_split"] = split
+    return split
 
 
 def check_case(c: Case) -> "tuple[float, str]":
@@ -756,7 +876,7 @@ def phase_kernels(db):
     the bound from those inputs; and the library yardstick."""
     import torch
     inp = kernel_inputs(db)
-    rows = {}
+    rows, main = {}, {}
     for c in kernel_cases(inp):
         err, note = check_case(c)
         costs = [c.cost(*args) for args in c.sets]
@@ -793,6 +913,8 @@ def phase_kernels(db):
         REPORT.setdefault("kernel_cases", []).append(dict(name=c.name, **row))
         if c.main:
             rows[c.name] = row
+            main[c.name] = c
+    chain_split(inp, main)
     torch.cuda.synchronize()
     return rows
 

@@ -1,5 +1,5 @@
 // distances.cuh: the per-candidate distance code shared by the gather
-// kernels (gather_dist.cu, pq_adc.cu, pq4_scan.cu, bin_hamming.cu), the
+// kernels (gather_dist.cu, pq_adc.cu, pq4_scan.cu), the
 // list scans (ivf_scan.cu) and the fused beam steps (traverse_step.cu).
 // A PQ, PQ4 or Hamming distance is one piece of arithmetic wherever it is
 // computed. The f32 and SQ scorers of gather_dist.cu and traverse_step.cu
@@ -23,15 +23,16 @@
 //   thread_adc4_n  same sums                             (the list scans)
 //   thread_adc_ldg, thread_adc and thread_adc4 with the table in device
 //   thread_adc4_ldg memory, a chunk's entries loaded before any is added,
-//                  the same sums                         (pq_adc, pq4_adc)
+//                  the same sums            (pq_adc, pq4_adc, the PQ step)
 //   thread_hamming one thread, one nw-word sign code:
-//                  sum_w popc(q[w] ^ code[w])            (bin_dist)
+//                  sum_w popc(q[w] ^ code[w])            (the bin step)
 //
 // metric 0 is l2 (sum of squared differences), 1 the negated inner
-// product (the callers negate the sum). The fused steps read the query,
-// scale, zero and LUT from shared memory, the gathers from device memory
-// through the read-only path; database rows and codes are read from
-// device memory through the read-only path (__ldg).
+// product (the callers negate the sum). The fused f32, SQ, PQ4 and bin
+// steps read the query, scale, zero, LUT or query words from shared
+// memory, the gathers and the fused PQ step from device memory through
+// the read-only path; database rows and codes are read from device
+// memory through the read-only path (__ldg).
 #pragma once
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -19,12 +19,17 @@
 //
 // Bound on this card: bytes. The gathered rows (Q*C*d*4 bytes for f32,
 // Q*C*d for SQ, Q*C*m for PQ, Q*C*m/2 for PQ4, Q*C*nw*4 for bin) and, for
-// PQ, the query's (m, K) f32 LUT (16 KB a query at m=16, K=256: most of
-// the PQ step's bytes; 1 KB for PQ4). Each block's threads x registers
-// stay within an eighth of an SM's 65,536 registers (__launch_bounds__),
-// so 8 blocks fit an SM and a batch of up to 1,056 queries is resident in
-// one wave: a step then takes about one block's dependent chain (the ids,
-// the rows, the sort) or, for f32 rows, the card's memory rate.
+// PQ, the sectors of the query's (m, K) f32 LUT that the codes hit (at
+// m=16, K=256 and C=96 nearly all of its 16 KB: most of the PQ step's
+// bytes; 1 KB for PQ4). Each block's threads x registers stay within an
+// eighth of an SM's 65,536 registers (__launch_bounds__), so 8 blocks fit
+// an SM and a batch of up to 1,056 queries is resident in one wave: a
+// step then takes its launch, one block's dependent chain (the ids, the
+// rows, the sort) and, for f32 rows and PQ tables, the bytes at the
+// card's memory rate. On ids that are all -1 the PQ, PQ4 and bin steps
+// take 0.0052-0.0055 ms on the H100 (Q=1000, C=96), against 0.0020 for
+// the bin_dist gather: the block a query, its sort and its outputs are a
+// floor that a scorer cannot cut.
 //
 // Design: one block per query, in three parts.
 // 1. Scoring. The f32 and SQ steps run blocks of 128 threads (at most 64
@@ -44,9 +49,17 @@
 //    200) a row takes one pass of the unit loop, and any other d or an
 //    unaligned row runs the same loop more times. The query (and SQ's
 //    scale and zero) are staged in shared memory while the first loads
-//    fly. The PQ, PQ4 and bin steps run blocks of 256 threads (at most 32
-//    registers) and score one candidate a thread from their staged table
-//    or query words (distances.cuh).
+//    fly. The PQ step runs blocks of 128 threads (at most 64 registers)
+//    and scores one candidate a thread with nothing staged: the id, the
+//    code row, then the 16 table entries its codes hit, loaded from device
+//    memory before any is added (distances.cuh, thread_adc_ldg). Staging
+//    the table in shared memory (one bulk copy, or cp.async copies, issued
+//    before or after the threads' id and code loads) measured no faster
+//    at C=96 and slower at the traversal's share of valid ids, on tables
+//    at a 4-byte offset and at m=32 (two waves); only C=192 (cp.async)
+//    and m=12 over K=64 (the bulk copy) ran faster, by 5%. The PQ4 and
+//    bin steps run blocks of 256 threads (at most 32 registers) and score
+//    one candidate a thread from their staged table or query words.
 // 2. Minima and tie counts: one warp per expansion, a warp min over its M
 //    entries and a ballot count over the earlier expansions' entries.
 // 3. The sort, of (distance, original position) pairs: for C <= 128 (every
@@ -61,19 +74,23 @@
 //    written distance is the original value. Larger C, up to 4096, sorts
 //    (distance, position) pairs padded to a power of two P >= C with
 //    (+inf, position >= C) by a bitonic network in shared memory.
-// Shared memory: the functor's staging (d*4, d*12, m*K*4 or nw*4 bytes),
-// C distances and C ids, plus P*8 bytes when C > 128.
+// Shared memory: the functor's staging (d*4, d*12, m*16*4 or nw*4 bytes;
+// none for PQ), C distances and C ids, plus P*8 bytes when C > 128.
 #include "distances.cuh"
 
 namespace {
 
 // Blocks: threads, and the blocks an SM must hold at once
 // (__launch_bounds__, which caps a thread's registers), for the grouped
-// scorers (f32, SQ) and for the scorers of a thread a candidate (PQ, PQ4,
-// bin); the registers a lane of a grouped scorer may fill with row units
-// in flight before it computes (so the rounds a pass takes).
+// scorers (f32, SQ), for the PQ scorer and for the scorers of a thread a
+// candidate from staged values (PQ4, bin); the subspaces whose table loads
+// a PQ thread has in flight at once; the registers a lane of a grouped
+// scorer may fill with row units in flight before it computes (so the
+// rounds a pass takes).
 constexpr int kGroupBlock = 128, kGroupMinBlocks = 8;
+constexpr int kPqBlock = 128, kPqMinBlocks = 8;
 constexpr int kThreadBlock = 256, kThreadMinBlocks = 8;
+constexpr int kPqChunk = 16;
 constexpr int kF32FlightRegs = 24, kSqFlightRegs = 24;
 constexpr int kWarpSortC = 128;   // C up to which one warp sorts in registers
 constexpr int kSortLane = kWarpSortC / 32;   // keys a lane holds
@@ -245,21 +262,26 @@ struct SqDist {
   }
 };
 
+// PQ, one thread a candidate and nothing staged: a thread loads its id,
+// its code row (V16: one 16-byte load per 16 subspaces, m % 16 == 0 and
+// 16-byte aligned rows; else bytes), then the table entries of kPqChunk
+// subspaces from device memory through the read-only path before it adds
+// any (thread_adc_ldg), so no barrier stands between the ids and the sort
+// and only the table sectors the codes hit are read.
+template <bool V16>
 struct PqDist {
-  static constexpr int kBlock = kThreadBlock, kMinBlocks = kThreadMinBlocks;
+  static constexpr int kBlock = kPqBlock, kMinBlocks = kPqMinBlocks;
   const float* lut;            // (Q, m, K)
   const unsigned char* codes;  // (n, m)
-  int m, K, vec16;
-  __device__ void stage(float* ex, int qi) const {
-    const float* lrow = lut + (size_t)qi * m * K;
-    for (int k = threadIdx.x; k < m * K; k += blockDim.x) ex[k] = lrow[k];
-  }
-  __device__ void score(const float* ex, const int* idrow, int C, float* out,
+  int m, K;
+  __device__ void stage(float*, int) const {}
+  __device__ void score(const float*, const int* idrow, int C, float* out,
                         int* ids_s) const {
-    __syncthreads();
+    const float* lrow = lut + (size_t)blockIdx.x * m * K;
     for (int j = threadIdx.x; j < C; j += blockDim.x) {
-      const int id = idrow[j];
-      out[j] = id >= 0 ? kbest::thread_adc(codes, id, ex, m, K, vec16 != 0)
+      const int id = __ldg(idrow + j);
+      out[j] = id >= 0 ? kbest::thread_adc_ldg<kPqChunk>(codes, id, lrow, m,
+                                                         K, V16)
                        : CUDART_INF_F;
       ids_s[j] = id;
     }
@@ -563,12 +585,12 @@ extern "C" int fused_expand_pq_u8(const void* lut, const void* codes,
                                   const void* ids, void* out_d, void* out_i,
                                   void* out_best, void* out_ties, int Q, int C,
                                   int T, int W, int m, int K, void* stream) {
-  int vec16 = (m % 16 == 0) && aligned(codes, 16);
-  PqDist dist{static_cast<const float*>(lut),
-              static_cast<const unsigned char*>(codes), m, K, vec16};
-  return launch(dist, (size_t)m * K,
-                Step{ids, out_d, out_i, out_best, out_ties, Q, C, T, W,
-                     stream});
+  const Step s{ids, out_d, out_i, out_best, out_ties, Q, C, T, W, stream};
+  const float* lf = static_cast<const float*>(lut);
+  const unsigned char* c = static_cast<const unsigned char*>(codes);
+  if (m % 16 == 0 && aligned(codes, 16))
+    return launch(PqDist<true>{lf, c, m, K}, 0, s);
+  return launch(PqDist<false>{lf, c, m, K}, 0, s);
 }
 
 extern "C" int fused_expand_pq4_u8(const void* lut, const void* codes,

@@ -657,6 +657,80 @@ def test_cuda_fused_epilogue_other_kinds(cuda, C):
         assert int(exp[3].sum()) > 0, "no injected tie was counted"
 
 
+# fused_expand_pq's scorer paths: case -> (m, K, W, M, L, share of ids
+# -1, codes at a 1-byte offset, tables at a 4-byte offset). m % 16 == 0
+# with aligned code rows loads 16 bytes a row; other m or offset codes a
+# byte at a time, m = 5 in one ragged chunk of table loads. Nothing bounds
+# m*K: m=256 over K=256 (256 KB tables, more than a block's shared memory)
+_PQ_STEP_CASES = {"main": (16, 256, 4, 24, 96, 0.1, False, False),
+                  "codes_offset": (16, 256, 4, 24, 96, 0.1, True, False),
+                  "m12_K64": (12, 64, 4, 24, 96, 0.1, False, False),
+                  "m32": (32, 256, 4, 24, 96, 0.1, False, False),
+                  "C128": (16, 256, 4, 32, 192, 0.1, False, False),
+                  "C192": (16, 256, 8, 24, 96, 0.1, False, False),
+                  "valid66": (16, 256, 4, 24, 96, 0.34, False, False),
+                  "tables_offset": (16, 256, 4, 24, 96, 0.1, False, True),
+                  "m5_K3": (5, 3, 4, 24, 96, 0.1, False, False),
+                  "m256": (256, 256, 4, 24, 96, 0.1, False, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_PQ_STEP_CASES))
+def test_cuda_fused_expand_pq_scorer_paths(cuda, case):
+    """fused_expand_pq on each way its codes and table entries are read,
+    at both sort branches, every output equal to the plain version's:
+    tables with entry 0 of each subspace -0.0 and every seventh
+    code row all zeros (a sum of -0.0 terms is +0.0), repeated ids across
+    expansions (exact ties) and query 1's ids all -1."""
+    m, K, W, M, L, invalid, codes_off, table_off = _PQ_STEP_CASES[case]
+    r = np.random.default_rng(m * K + W * M)
+    Q, n, C = 16, 3000, W * M
+    ids = _fused_ids(r, Q, C, W, n)
+    ids[r.random((Q, C)) < invalid - 0.1] = -1
+    lut = r.normal(size=(Q, m, K)).astype(np.float32)
+    lut[:, :, 0] = -0.0
+    codes = r.integers(0, K, size=(n, m)).astype(np.uint8)
+    codes[::7] = 0
+    lut, codes, ids = (torch.as_tensor(a, device=cuda)
+                       for a in (lut, codes, ids))
+    if codes_off:
+        codes = _unaligned(codes)
+    if table_off:
+        lut = _unaligned(lut)
+    before = tops.launch_counts()["fused_expand_pq"]
+    out = tops.fused_expand_pq(lut, codes, ids, L=L, n_beam=W)
+    exp = tref.fused_expand_pq_ref(lut, codes, ids, L, W)
+    _check_fused(out, exp, True)
+    assert not torch.isfinite(out[0][1]).any() and (out[1][1] == -1).all()
+    assert int(exp[3].sum()) > 0, "no injected tie was counted"
+    assert tops.launch_counts()["fused_expand_pq"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [1, 3, 4, 7, 9])
+@pytest.mark.parametrize("B", [1, 8, 24, 33])
+def test_cuda_bin_dist_paths(cuda, nw, B):
+    """bin_dist at the word counts it unrolls (3, 4, 7: d = 96, 128, 200)
+    and on its general path (1, 9, in chunks of 8 words), at the seed, step
+    and ragged widths, equal to the plain version: query 0's ids all -1
+    (+inf), query 1's one id repeated."""
+    r = np.random.default_rng(nw * 100 + B)
+    Q, n = 37, 3000
+    qw, words = (torch.as_tensor(r.integers(-2 ** 31, 2 ** 31, size=(k, nw))
+                                 .astype(np.int32), device=cuda)
+                 for k in (Q, n))
+    ids = r.integers(0, n, size=(Q, B)).astype(np.int32)
+    ids[r.random((Q, B)) < 0.1] = -1
+    ids[0] = -1
+    ids[1] = ids[1, 0] if ids[1, 0] >= 0 else 5
+    ids = torch.as_tensor(ids, device=cuda)
+    before = tops.launch_counts()["bin_dist"]
+    out = tops.bin_dist(qw, words, ids)
+    assert torch.equal(out, tref.bin_dist_ref(qw, words, ids))
+    assert torch.isinf(out[0]).all() and (out[1] == out[1, 0]).all()
+    assert tops.launch_counts()["bin_dist"] == before + 1
+
+
 # the PQ list scans' branches: case -> (max_len, L for PQ8, L for PQ4,
 # tables). L <= 256 with the list's keys in shared memory takes the
 # histogram select and the sort in one warp's registers; "nan" tables
