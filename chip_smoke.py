@@ -14,7 +14,11 @@ Phases:
      `pq4_adc` over u8-requantized tables; `fused_expand_pq` also on code
      rows at a 1-byte offset, at m=12 over K=64 and at m=32, at C=128 and
      C=192, at the traversal's share of valid ids and on tables at a
-     4-byte offset; `bin_dist` also at nw=4 and 7 and at B=1 and 33;
+     4-byte offset; `fused_expand_pq4` also on code rows at a 1-byte
+     offset, at m=32 and over u8-requantized tables, `fused_expand_bin`
+     also at nw=4 and 7, and both at C=128 and C=192, at the traversal's
+     share of valid ids and with one expansion's ids all -1; `bin_dist`
+     also at nw=4 and 7 and at B=1 and 33;
      `ivf_scan` also at 4x the ivf_pq preset's nprobe, and it and the bin
      scan on a tie storm and at L = max_len), and the gathers' and fused
      steps' fixed costs split by calls on ids that are all -1;
@@ -87,6 +91,8 @@ ANCHOR = dict(recall=0.957, iters=23)   # BENCH_traverse.json, W=4, ET on
 # phase 4's dists/q over (lockstep iterations x C), 2,662.9 / (42.2 x 96)
 # on the H100; the rest are -1 (visited, duplicate or padding)
 TRAVERSAL_VALID = 0.66
+FUSED_STEPS = ("fused_expand", "fused_expand_sq", "fused_expand_pq",
+               "fused_expand_pq4", "fused_expand_bin")
 
 REPORT: dict = {}
 
@@ -423,8 +429,9 @@ def kernel_cases(inp: dict) -> "list[Case]":
     TRAVERSAL_VALID); the fused steps' ids repeat rows across
     expansions, so exact ties occur (and Hamming distances of random signs
     tie everywhere). The gathers also run at M=24 on their general paths,
-    and gather_dist at the re-rank depths M=40 and M=640; fused_expand_pq
-    and bin_dist on their other paths (drawn last). The bin kernels, the
+    and gather_dist at the re-rank depths M=40 and M=640; fused_expand_pq,
+    bin_dist, fused_expand_pq4 and fused_expand_bin on their other paths
+    (drawn last, in that order). The bin kernels, the
     PQ and PQ4 gathers and fused steps (which sum as their plain versions
     do) and the list scans must equal their plain versions. Each case
     holds enough argument sets that they gather twice the card's L2 in
@@ -760,6 +767,67 @@ def kernel_cases(inp: dict) -> "list[Case]":
                 row_bytes(ids, words * 4) + Q * words * 4 + Q * M * 8,
                 3.0 * valid(ids) * words),
             lambda M=M: (marked_ids(M),), exact=True)
+
+    # ---- the PQ4 and bin steps' other paths, held exactly: PQ4 code rows
+    # at a 1-byte offset (byte loads), m=32 (the ivf_pq4 preset's m) and
+    # u8-requantized tables (the pq4+u8lut kind's exact ties); bin at nw = 4
+    # and 7 (d = 128, 200); both at C=128 (the largest sort in registers),
+    # C=192 (W=8: the block path), the traversal's share of valid ids and
+    # with expansion 1's ids all -1 (its best +inf, expansion 0's +inf
+    # entries its ties). Bytes as the main steps' ----
+    def step_ids(W, M, invalid, blank):
+        ids = tied_ids(W, M, invalid)
+        if blank:
+            ids[:, M:2 * M] = -1
+        return ids
+
+    p4codes32 = torch.randint(0, 256, (n, 16), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+    words = {nw: (signs, qsigns)}
+    for k in (4, 7):
+        words[k] = tuple(torch.randint(-2 ** 31, 2 ** 31, (r, k), generator=g,
+                                       device=dev, dtype=torch.int64)
+                         .to(torch.int32) for r in (n, Q))
+    blank, valid66 = " expansion 1 all -1", f" valid {TRAVERSAL_VALID:.0%}"
+    shapes = ((4, 32, 192, 0.05, ""), (8, 24, MAIN_L, 0.05, ""),
+              (4, 24, MAIN_L, 1 - TRAVERSAL_VALID, valid66),
+              (4, 24, MAIN_L, 0.05, blank))
+    for note, cds, u8, W, M, L, invalid in (
+            (" codes at offset 1", offset_view(p4codes), False, 4, 24,
+             MAIN_L, 0.05),
+            ("", p4codes32, False, 4, 24, MAIN_L, 0.05),
+            (" u8 tables", p4codes, True, 4, 24, MAIN_L, 0.05),
+            *((nt, p4codes, False, W_, M_, L_, inv)
+              for W_, M_, L_, inv, nt in shapes)):
+        C, T, mm = W * M, min(L, W * M), 2 * cds.shape[1]
+        io = Q * C * 4 + Q * T * 8 + Q * W * 8
+        add("fused_expand_pq4", f"Q={Q} W={W} M={M} L={L} m={mm} K=16 "
+            f"n={n}{note}", False, True,
+            lambda t, ids, c=cds, L=L, W=W: ops.fused_expand_pq4(
+                t, c, ids, L=L, n_beam=W),
+            lambda t, ids, c=cds, L=L, W=W: ref.fused_expand_pq4_ref(
+                t, c, ids, L, W),
+            lambda t, ids, c=cds, io=io, mm=mm: (
+                pq_bytes(c, ids, nibbles=True) + io, float(valid(ids) * mm)),
+            lambda mm=mm, u8=u8, W=W, M=M, invalid=invalid, note=note: (
+                u8_tables(lut(16, mm)) if u8 else lut(16, mm),
+                step_ids(W, M, invalid, note == blank)), exact=True)
+    for k, W, M, L, invalid, note in (
+            (4, 4, 24, 320, 0.05, ""), (7, 4, 24, 320, 0.05, ""),
+            *((nw, W_, M_, 320, inv, nt) for W_, M_, _, inv, nt in shapes)):
+        cw, qw = words[k]
+        C, T = W * M, min(L, W * M)
+        io = Q * C * 4 + Q * T * 8 + Q * W * 8
+        add("fused_expand_bin", f"Q={Q} W={W} M={M} L={L} nw={k} "
+            f"n={n}{note}", False, True,
+            lambda ids, cw=cw, qw=qw, L=L, W=W: ops.fused_expand_bin(
+                qw, cw, ids, L=L, n_beam=W),
+            lambda ids, cw=cw, qw=qw, L=L, W=W: ref.fused_expand_bin_ref(
+                qw, cw, ids, L, W),
+            lambda ids, io=io, k=k: (row_bytes(ids, k * 4) + Q * k * 4 + io,
+                                     3.0 * valid(ids) * k),
+            lambda W=W, M=M, invalid=invalid, note=note: (
+                step_ids(W, M, invalid, note == blank),), exact=True)
     return cases
 
 
@@ -770,9 +838,9 @@ def chain_split(inp: dict, cases: dict) -> dict:
     memory: the launch floor, a one-element `Tensor.zero_()` (a yardstick
     only); `bin_dist` and `gather_dist` (ip) at B=24 with every id -1
     (the launch, the id trip and the store; no row is read) and with 5% -1
-    (the row trip added); the PQ, PQ4 and bin fused steps at W=4, C=96
-    with every id -1 (the launch, the id trip, a block a query, its sort
-    and its outputs: what no scorer can cut); and `fused_expand_pq` on its
+    (the row trip added); the five fused steps at W=4, C=96 with every id
+    -1 (the launch, the id trip, the id-independent loads, the sort and
+    the outputs: what no scorer can cut); and `fused_expand_pq` on its
     main case's ids with one set of tables for every call, which the L2
     then holds, as it likely does across a traversal's iterations. The
     main `cases` (by name) give the operands."""
@@ -799,7 +867,7 @@ def chain_split(inp: dict, cases: dict) -> dict:
         split[f"{name}_invalid_ms"] = graph_ms(fn, [(i,) for i in none])
         split[f"{name}_ms"] = graph_ms(fn, [(i,) for i in some])
     none = id_sets(96, 1.0)
-    for name in ("fused_expand_pq", "fused_expand_pq4", "fused_expand_bin"):
+    for name in FUSED_STEPS:
         c = cases[name]
         lead = [a[:-1] for a in c.sets]         # the tables, if any
         split[f"{name}_invalid_ms"] = graph_ms(c.kern, [
@@ -814,8 +882,7 @@ def chain_split(inp: dict, cases: dict) -> dict:
                     f"{split[name + '_ms']:.4f}" for name in ("bin_dist",
                                                             "gather_dist")))
     log("[chain] fused steps W=4 C=96, every id -1, device ms: " + ", ".join(
-        f"{name} {split[name + '_invalid_ms']:.4f}" for name in (
-            "fused_expand_pq", "fused_expand_pq4", "fused_expand_bin"))
+        f"{name} {split[name + '_invalid_ms']:.4f}" for name in FUSED_STEPS)
         + f"; fused_expand_pq on one set of tables (L2-warm) "
         f"{split['fused_expand_pq_l2_tables_ms']:.4f}")
     REPORT["chain_split"] = split

@@ -24,15 +24,18 @@
 //   thread_adc_ldg, thread_adc and thread_adc4 with the table in device
 //   thread_adc4_ldg memory, a chunk's entries loaded before any is added,
 //                  the same sums            (pq_adc, pq4_adc, the PQ step)
+//   thread_adc4_rows thread_adc4 over U rows at once, the table in shared
+//                  memory, the same sums           (the PQ4 step, C <= 128)
 //   thread_hamming one thread, one nw-word sign code:
-//                  sum_w popc(q[w] ^ code[w])            (the bin step)
+//                  sum_w popc(q[w] ^ code[w])  (the bin step, C > 128)
 //
 // metric 0 is l2 (sum of squared differences), 1 the negated inner
-// product (the callers negate the sum). The fused f32, SQ, PQ4 and bin
-// steps read the query, scale, zero, LUT or query words from shared
-// memory, the gathers and the fused PQ step from device memory through
-// the read-only path; database rows and codes are read from device
-// memory through the read-only path (__ldg).
+// product (the callers negate the sum). The fused f32, SQ and PQ4 steps,
+// and the bin step at C > 128, read the query, scale, zero, LUT or query
+// words from shared memory; the gathers, the fused PQ step and the bin
+// step at C <= 128 from device memory through the read-only path;
+// database rows and codes are read from device memory through the
+// read-only path (__ldg).
 #pragma once
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -297,6 +300,84 @@ __device__ __forceinline__ float thread_adc4_ldg(
     }
   }
   return acc;
+}
+
+// thread_adc4 over U rows at once, each row's sum exactly thread_adc4's
+// (from +0.0, j = 0 .. m-1 in order), with lut the query's (m, 16) table
+// in shared memory. The code bytes of 32 subspaces of every row are
+// loaded at once (V8: m % 16 == 0 and 8-byte aligned rows, two 8-byte
+// loads a row; else bytes), then ready() is called (once, before the
+// first table read: the wait for the table being staged), then the table
+// entries of kChunk subspaces of every row are loaded before any is
+// added. Rows with id < 0 are not read (their out is 0).
+template <int U, int kChunk, bool V8, class Ready>
+__device__ __forceinline__ void thread_adc4_rows(
+    const unsigned char* __restrict__ codes, const int (&id)[U],
+    const float* lut, int m, Ready ready, float (&out)[U]) {
+  constexpr int kCodeBytes = 16;           // 32 subspaces a pass
+  constexpr int kBytes = kChunk / 2;
+  static_assert(kChunk % 16 == 0 && kCodeBytes % kBytes == 0,
+                "kChunk: 16 or 32 subspaces");
+  const int mh = m >> 1;
+#pragma unroll
+  for (int u = 0; u < U; ++u) out[u] = 0.f;
+  bool first = true;
+  for (int b0 = 0; b0 < mh; b0 += kCodeBytes) {
+    unsigned int c[U][kCodeBytes];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const unsigned char* row = codes + (size_t)(id[u] < 0 ? 0 : id[u]) * mh
+                                 + b0;
+      if constexpr (V8) {
+#pragma unroll
+        for (int g = 0; g < kCodeBytes / 8; ++g) {
+          const uint2 w = id[u] >= 0 && b0 + 8 * g < mh
+                              ? __ldg(reinterpret_cast<const uint2*>(
+                                    row + 8 * g))
+                              : make_uint2(0u, 0u);
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            c[u][8 * g + t] = ((t < 4 ? w.x : w.y) >> ((t & 3) * 8)) & 0xffu;
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < kCodeBytes; ++t)
+          c[u][t] = id[u] >= 0 && b0 + t < mh ? __ldg(row + t) : 0u;
+      }
+    }
+    if (first) {
+      ready();
+      first = false;
+    }
+#pragma unroll
+    for (int s0 = 0; s0 < kCodeBytes; s0 += kBytes) {
+      if (b0 + s0 >= mh) break;
+      float v[U][kChunk];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int t = 0; t < kBytes; ++t) {
+          const bool on = id[u] >= 0 && b0 + s0 + t < mh;
+          const int j = 2 * (b0 + s0 + t);
+          const unsigned int cb = c[u][s0 + t];
+          const float* lo = lut + j * 16 + (cb & 15u);
+          const float* hi = lut + (j + 1) * 16 + (cb >> 4);
+          v[u][2 * t] = on ? *lo : 0.f;
+          v[u][2 * t + 1] = on ? *hi : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int t = 0; t < kBytes; ++t) {
+          if (b0 + s0 + t < mh) {
+            out[u] += v[u][2 * t];
+            out[u] += v[u][2 * t + 1];
+          }
+        }
+      }
+    }
+  }
 }
 
 // thread_adc4 over U rows at once, as thread_adc_n is thread_adc's.

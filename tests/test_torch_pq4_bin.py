@@ -57,6 +57,20 @@ def _inject_ties(ids, W, M):
         ids[:, w * M + 1] = ids[:, (w - 1) * M + 2]
 
 
+def _blank(ids, W, M, w=1):
+    """Expansion w's ids all -1: its best is +inf and every +inf entry of
+    the earlier expansions ties with it (float ==)."""
+    ids[:, w * M:(w + 1) * M] = -1
+
+
+def _blank_counted(out, ids, W, M, w=1):
+    """The blanked expansion's best and tie count as the semantics give
+    them, and at least one such tie (each query has an invalid id)."""
+    assert np.isinf(out[2][:, w]).all()
+    exp = (ids[:, :w * M] < 0).sum(axis=1)
+    assert np.array_equal(out[3][:, w], exp) and exp.sum() > 0
+
+
 def _same_block(out, exps, exact=False):
     """A fused block against each expected block: dists and bests to TOL
     (or exactly), ids and tie counts exactly."""
@@ -248,11 +262,19 @@ def test_pq4_adc_negative_zero_rows():
     assert zero.any() and (out[zero] == 0).all()
 
 
-@pytest.mark.parametrize("W,M,L", [(1, 8, 4), (4, 6, 24), (4, 8, 10)])
-def test_fused_expand_pq4_matches_reference(W, M, L):
+@pytest.mark.parametrize("W,M,L,blank", [
+    pytest.param(1, 8, 4, False, id="1-8-4"),
+    pytest.param(4, 6, 24, False, id="4-6-24"),
+    pytest.param(4, 8, 10, False, id="4-8-10"),
+    pytest.param(4, 6, 24, True, id="4-6-24-blank_expansion")])
+def test_fused_expand_pq4_matches_reference(W, M, L, blank):
+    """With `blank`, expansion 1's ids are all -1 (_blank)."""
     Q, C, n, m = 3, W * M, 60, 16
     lut, packed, ids = _pq4_case(W * M + L, Q, C, n, m)
     _inject_ties(ids, W, M)
+    if blank:
+        ids[:, 0] = -1
+        _blank(ids, W, M)
     out = [t.numpy() for t in tops.fused_expand_pq4(
         _t(lut), _t(packed), _t(ids), L=L, n_beam=W)]
     j = jnp.asarray
@@ -261,6 +283,8 @@ def test_fused_expand_pq4_matches_reference(W, M, L):
         jref.fused_expand_pq4_ref(j(lut), j(packed), j(ids), L, W))])
     if W > 1:
         assert out[3].sum() > 0, "the injected ties were not counted"
+    if blank:
+        _blank_counted(out, ids, W, M)
 
 
 @pytest.mark.parametrize("Q,B,n,d", [(3, 8, 50, 96), (4, 24, 300, 70),
@@ -277,12 +301,15 @@ def test_bin_dist_matches_reference(Q, B, n, d):
     assert out[ids >= 0].max() <= d
 
 
-@pytest.mark.parametrize("case", ["random", "few_values", "all_ties"])
+@pytest.mark.parametrize("case", ["random", "few_values", "all_ties",
+                                  "blank_expansion"])
 @pytest.mark.parametrize("W,M,L", [(1, 8, 4), (4, 6, 24), (4, 8, 10)])
 def test_fused_expand_bin_matches_reference(case, W, M, L):
     """Hamming blocks are mostly exact ties: the order, minima and tie
     counts must equal the reference's exactly, also on a block of codes
-    that take two values, and on one where every candidate ties."""
+    that take two values, on one where every candidate ties, and where
+    the last expansion's ids are all -1 (_blank; at W=1 the whole
+    block)."""
     Q, C, n, d = 3, W * M, 60, 96
     qc, codes, ids = _bin_case(W * M + L, Q, C, n, d)
     if case == "few_values":
@@ -292,6 +319,9 @@ def test_fused_expand_bin_matches_reference(case, W, M, L):
         codes[:] = codes[0]
         ids[ids < 0] = 0
     _inject_ties(ids, W, M)
+    if case == "blank_expansion":
+        ids[:, 0] = -1
+        _blank(ids, W, M, W - 1)
     out = [t.numpy() for t in tops.fused_expand_bin(
         _words(qc), _words(codes), _t(ids), L=L, n_beam=W)]
     j = jnp.asarray
@@ -301,6 +331,10 @@ def test_fused_expand_bin_matches_reference(case, W, M, L):
         exact=True)
     if W > 1:
         assert out[3].sum() > 0, "the injected ties were not counted"
+        if case == "blank_expansion":
+            _blank_counted(out, ids, W, M, W - 1)
+    elif case == "blank_expansion":
+        assert np.isinf(out[0]).all() and (out[1] == -1).all()
 
 
 # --------------------------------------------------------------------------
@@ -356,3 +390,36 @@ def test_cuda_bin_kernels_equal_plain(cuda, d, case):
     after = tops.launch_counts()
     assert after["bin_dist"] == before["bin_dist"] + 1
     assert after["fused_expand_bin"] == before["fused_expand_bin"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,W,blank", [
+    (1, 1, False), (4, 1, False), (96, 1, False), (96, 8, False),
+    (128, 1, False), (128, 8, False), (129, 1, False), (96, 4, True)])
+def test_cuda_fused_pq4_bin_shapes_equal_plain(cuda, C, W, blank):
+    """Both fused steps at the edges of the sort in one warp's registers
+    (C = 1, 4, 96, 128; 129 takes the block path), at W = 1 and 8, and
+    with expansion 1's ids all -1: every output equal to the plain
+    version's, at T = C and at a cut T. PQ4 also over tables of
+    1 + k * 2^-20 (k < 8), whose sums differ in their last bits only: the
+    kernel's 32-bit sort keys then tie and its exact order is restored."""
+    M = C // W
+    lut, packed, ids = _pq4_case(C + W, 40, C, 3000, 16)
+    near = (1 + np.random.default_rng(C).integers(0, 8, lut.shape)
+            * 2.0 ** -20).astype(np.float32)
+    qc, codes, _ = _bin_case(C + W, 40, C, 3000, 96)
+    if W > 1:
+        _inject_ties(ids, W, M)
+    if blank:
+        _blank(ids, W, M)
+    lut, near, packed, ids = _on(cuda, lut, near, packed, ids)
+    qc, codes = _words(qc).to(cuda), _words(codes).to(cuda)
+    for L in (C, max(1, C // 2 + 1)):
+        for out, exp in (
+                (tops.fused_expand_pq4(lut, packed, ids, L=L, n_beam=W),
+                 tref.fused_expand_pq4_ref(lut, packed, ids, L, W)),
+                (tops.fused_expand_pq4(near, packed, ids, L=L, n_beam=W),
+                 tref.fused_expand_pq4_ref(near, packed, ids, L, W)),
+                (tops.fused_expand_bin(qc, codes, ids, L=L, n_beam=W),
+                 tref.fused_expand_bin_ref(qc, codes, ids, L, W))):
+            assert all(torch.equal(a, b) for a, b in zip(out, exp)), (L, W)
