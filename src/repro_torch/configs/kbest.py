@@ -4,11 +4,14 @@ recommended KBest parameters per evaluation dataset (paper Table 3/4).
 A copy of the index presets of the JAX package's `repro/configs/kbest.py`
 (graph: `index_config`, `beam_index_config`, `sq_index_config`,
 `bin_index_config`, `smoke_config`; IVF: `ivf_index_config`,
-`ivf_pq4_index_config`, `ivf_bin_index_config`, `ivf_smoke_config`), with
-the same values, so a preset names the same index in both packages.
+`ivf_pq4_index_config`, `ivf_bin_index_config`, `ivf_smoke_config`; the
+sharded presets of DESIGN.md §12, `full_config` and the serving tier's
+`degrade_ladder`), with the same values, so a preset names the same index
+in both packages.
 
     from repro_torch.configs import kbest
     cfg = kbest.beam_index_config("deep_like")
+    cfg = kbest.sharded_index_config("deep_like", 2)  # core.sharded.ShardedKBest
 """
 import dataclasses
 
@@ -170,3 +173,65 @@ def ivf_smoke_config() -> IndexConfig:
         ivf=IVFConfig(nlist=8, kmeans_iters=4, list_pad=8),
         quant=QuantConfig(kind="pq", pq_m=8, kmeans_iters=3),
         search=SearchConfig(L=16, k=5, nprobe=4))
+
+
+def sharded_index_config(dataset: str, n_shards: int = 2) -> IndexConfig:
+    """Graph preset over n_shards shards (DESIGN.md §12). Each shard runs
+    the full traversal at the preset's L, so the merged recall only goes
+    up."""
+    return dataclasses.replace(index_config(dataset), n_shards=n_shards)
+
+
+def sharded_ivf_index_config(dataset: str, n_shards: int = 2) -> IndexConfig:
+    """IVF-PQ preset over n_shards shards: every shard trains its own
+    coarse centroids (nlist=0: sqrt of its rows) and probes nprobe of
+    them."""
+    return dataclasses.replace(ivf_index_config(dataset), n_shards=n_shards)
+
+
+def sharded_ivf_pq4_index_config(dataset: str,
+                                 n_shards: int = 2) -> IndexConfig:
+    """4-bit fast-scan IVF preset over n_shards shards."""
+    return dataclasses.replace(ivf_pq4_index_config(dataset),
+                               n_shards=n_shards)
+
+
+def sharded_bin_index_config(dataset: str, n_shards: int = 2) -> IndexConfig:
+    """1-bit sign-codec graph preset over n_shards shards."""
+    return dataclasses.replace(bin_index_config(dataset), n_shards=n_shards)
+
+
+def sharded_smoke_config(n_shards: int = 2) -> IndexConfig:
+    """Tiny sharded graph config for quick tests."""
+    return dataclasses.replace(smoke_config(), n_shards=n_shards)
+
+
+def full_config(dataset: str = "bigann_like") -> IndexConfig:
+    return index_config(dataset)
+
+
+def degrade_ladder(cfg: IndexConfig, n_rungs: int = 4) -> tuple:
+    """The serving tier's shed valve (DESIGN.md §17): rung 0 is the
+    config's own SearchConfig; each further rung halves L (down to k and
+    beam_width), nprobe and rescore_factor. A candidate that does not
+    STRICTLY lower the predicted cost (`analysis.cost.predict_service_s`)
+    is skipped, so the ladder falls in cost by construction and every rung
+    is a valid standalone SearchConfig."""
+    from repro_torch.analysis.cost import predict_service_s
+    s = cfg.search
+    ladder = [s]
+    last_cost = predict_service_s(cfg, s)
+    while len(ladder) < n_rungs:
+        cand = dataclasses.replace(
+            s,
+            L=max(s.k, s.beam_width, s.L // 2),
+            nprobe=max(1, s.nprobe // 2),
+            rescore_factor=max(1, s.rescore_factor // 2))
+        if cand == s:
+            break                        # every knob is at its floor
+        s = cand
+        c = predict_service_s(cfg, s)
+        if c < last_cost * 0.999:
+            ladder.append(s)
+            last_cost = c
+    return tuple(ladder)

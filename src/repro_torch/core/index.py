@@ -105,7 +105,8 @@ class KBest:
         lists instead of a graph."""
         cfg = self.config
         assert cfg.n_shards == 1, \
-            "config.n_shards > 1 is the sharded composition, not ported yet"
+            "config.n_shards > 1 is the sharded composition — build it " \
+            "with repro_torch.core.sharded.ShardedKBest, not KBest"
         b = cfg.build
         dev = self.device
         times = self.build_times = {} if timings is None else timings
@@ -213,7 +214,7 @@ class KBest:
         """Top-k search. queries: (Q, d). Returns (dists, ids[, stats]) as
         tensors on the index's device."""
         assert self.db is not None, "call add() first"
-        scfg = resolve_search_cfg(self.config, k, search_cfg)
+        scfg = self._resolve_cfg(k, search_cfg)
         dists, ids, stats = self._search_impl(
             prep_queries(self.config, queries, self.device), scfg,
             valid_mask=None)
@@ -227,7 +228,7 @@ class KBest:
         start inactive in the traversal; valid rows equal an unpadded
         `search` of the same queries."""
         assert self.db is not None, "call add() first"
-        scfg = resolve_search_cfg(self.config, k, search_cfg)
+        scfg = self._resolve_cfg(k, search_cfg)
         vm = torch.as_tensor(np.asarray(valid_mask, dtype=bool),
                              device=self.device)
         dists, ids, stats = self._search_impl(
@@ -235,6 +236,12 @@ class KBest:
             valid_mask=vm)
         dists, ids, stats = mask_padded_lanes(vm, dists, ids, stats)
         return (dists, ids, stats) if with_stats else (dists, ids)
+
+    def _resolve_cfg(self, k: Optional[int],
+                     search_cfg: Optional[SearchConfig]) -> SearchConfig:
+        """The concrete SearchConfig of a call (the serving engine's
+        cache-key component)."""
+        return resolve_search_cfg(self.config, k, search_cfg)
 
     def _search_impl(self, q: torch.Tensor, scfg: SearchConfig,
                      valid_mask: Optional[torch.Tensor]):
