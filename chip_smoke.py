@@ -5,7 +5,10 @@
 
 Phases:
   1. device and build: the card's name and power limit, the nvcc build of
-     every kernel in src/repro_torch/kernels/csrc;
+     every kernel in src/repro_torch/kernels/csrc, the port's lint
+     (`repro_torch.analysis`, all seven checks; any violation fails) and
+     its static shared bytes of each kernel held against the `bytes smem`
+     that ptxas reports for each instantiation;
   2. each kernel against its plain torch version on the card, at the main
      path's shapes, with its time, its bound, the plain version's time and
      a library yardstick (the bin kernels, the PQ and PQ4 gathers and
@@ -63,7 +66,18 @@ Phases:
      dispatch latency at buckets 8 and 256, and the reference's overload
      pair (benchmarks/serving.py: Poisson arrivals at twice the measured
      capacity, no policy against admission + degrade ladder + bounded
-     queue) over phase 7's `ivf_pq` index.
+     queue) over phase 7's `ivf_pq` index;
+ 10. the tuner (core/tune.py) on the same vectors, queries and ground
+     truth, every search on the kernels: `tune_early_term` on phase 4's
+     graph at W=4, L=96 over 1,000 queries, then the tuned and untuned
+     configs in turns over the other 9,000; `tune_quant_kind(pq_m=16)`
+     on the same graph (five quantizer trainings at 1M); `tune_config`
+     over the IVF kinds at 1M (5,000 tune and 5,000 holdout queries, SLO
+     0.90) and over the graph kinds at 100,000 vectors (a cut: one more
+     1M graph build would cost about 90 s), each held to the reference's
+     invariants (at most half the grid measured, rows cheapest-first,
+     the winner the first row at SLO + margin, else the best measured
+     with a note).
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -107,6 +121,9 @@ ANCHOR = dict(recall=0.957, iters=23)   # BENCH_traverse.json, W=4, ET on
 TRAVERSAL_VALID = 0.66
 # phase 9's overload pair: requests of 8 queries each run
 OVERLOAD_REQUESTS = 2000
+# phase 10: the ET search's queries (the rest are its holdout), the IVF
+# tuner's SLO and the graph tuner's corpus, cut from 1M (PERF.md §4)
+TUNE_Q, TUNE_SLO, N_TUNE_GRAPH = 1000, 0.90, 100_000
 FUSED_STEPS = ("fused_expand", "fused_expand_sq", "fused_expand_pq",
                "fused_expand_pq4", "fused_expand_bin")
 
@@ -256,7 +273,72 @@ def phase_device():
                 log(f"[ptxas {name}] {line.strip()}")
     REPORT["card"] = card
     REPORT["build_s"] = secs
+    REPORT["lint"] = phase_lint(_build.build_logs)
     return card
+
+
+def ptxas_smem(log_text: str) -> "dict[str, int]":
+    """Static shared bytes per entry function (mangled name) from the
+    `-Xptxas -v` output of one source."""
+    import re
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = 0
+            continue
+        if entry and "Used" in line and "registers" in line:
+            m = re.search(r"(\d+) bytes smem", line)
+            out[entry] = int(m.group(1)) if m else 0
+            entry = None
+    return out
+
+
+def phase_lint(build_logs: dict) -> dict:
+    """The port's lint on this checkout (raises on any violation), and
+    smem_budget's static shared bytes of each kernel held against what
+    ptxas reports for each of its instantiations: the estimate must not be
+    lower, and every entry function must be a __global__ the lint knows."""
+    from repro_torch.analysis import run_all, smem
+    from repro_torch.analysis.common import Tree
+    t0 = time.perf_counter()
+    violations = run_all(ROOT)
+    for v in violations:
+        log(f"[lint] {v}")
+    if violations:
+        raise RuntimeError(f"repro_torch lint: {len(violations)} "
+                           f"violation(s)")
+    est = smem.estimate(Tree(ROOT))
+    rows = []
+    for source, text in sorted(build_logs.items()):
+        for entry, ptx in sorted(ptxas_smem(text).items()):
+            match = [k for k in est if k.source == source
+                     and f"{len(k.name)}{k.name}" in entry]
+            if len(match) != 1:
+                raise RuntimeError(f"ptxas entry {entry} of {source}.cu "
+                                   f"matches {len(match)} __global__ "
+                                   f"functions of the smem check")
+            k = match[0]
+            rows.append(dict(source=source, kernel=k.name, entry=entry,
+                             ptxas_smem=ptx, static_estimate=k.static_bytes))
+            if k.static_bytes < ptx:
+                raise RuntimeError(
+                    f"smem_budget's static estimate of {k.name} "
+                    f"({k.static_bytes} B) is below ptxas's {ptx} B "
+                    f"({entry})")
+    # per kernel: (ptxas's largest over its instantiations, the estimate)
+    by_kernel = {}
+    for r in rows:
+        key = f"{r['source']}/{r['kernel']}"
+        top = max(by_kernel.get(key, (0, 0))[0], r["ptxas_smem"])
+        by_kernel[key] = (top, r["static_estimate"])
+    log(f"[lint] 7 checks, 0 violations ({time.perf_counter() - t0:.1f} s); "
+        f"static shared bytes, ptxas (max over {len(rows)} instantiations) "
+        f"/ estimate: " + ", ".join(f"{key} {a}/{b}" for key, (a, b)
+                                    in sorted(by_kernel.items())))
+    return dict(violations=0, entries=len(rows),
+                ptxas_smem={k: a for k, (a, _) in by_kernel.items()})
 
 
 # --------------------------------------------------------------------------
@@ -1963,6 +2045,174 @@ def phase_serving(idx, sharded, ivf_pq, ds):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 10
+# --------------------------------------------------------------------------
+def check_tune_result(res, tag):
+    """The reference's invariants of tune_config: at most half the grid
+    measured, rows cheapest-first by pred_us, and the winner the first row
+    at slo + margin or better, else the best measured row with a note."""
+    assert res.n_measured == len(res.rows) <= res.grid_size // 2, tag
+    preds = [r["pred_us"] for r in res.rows]
+    assert preds == sorted(preds), (tag, preds)
+    s = res.config.search
+    won = (res.config.quant.kind, s.L, s.nprobe, s.beam_width,
+           s.rescore_factor)
+    keys = [(r["kind"], r["L"], r["nprobe"], r["beam_width"],
+             r["rescore_factor"]) for r in res.rows]
+    cleared = [i for i, r in enumerate(res.rows)
+               if r["recall"] >= res.recall_slo + 0.02]
+    if cleared:
+        assert cleared == [len(res.rows) - 1] and won == keys[-1], tag
+    else:
+        best = max(range(len(res.rows)), key=lambda i: res.rows[i]["recall"])
+        assert won == keys[best] and res.notes, (tag, res.notes)
+
+
+def tune_summary(res, seconds, counts):
+    s = res.config.search
+    return dict(
+        grid_size=res.grid_size, n_deduped=res.n_deduped,
+        n_measured=res.n_measured, n_pruned=res.n_pruned,
+        winner=dict(kind=res.config.quant.kind, pq_m=res.config.quant.pq_m,
+                    L=s.L, nprobe=s.nprobe, beam_width=s.beam_width,
+                    rescore_factor=s.rescore_factor, early_term=s.early_term,
+                    et_t_frac=s.et_t_frac, et_patience=s.et_patience),
+        recall_tune=res.recall_tune, recall_holdout=res.recall_holdout,
+        recall_slo=res.recall_slo, notes=res.notes, rows=res.rows,
+        seconds=seconds, launches=counts)
+
+
+def phase_tuner(idx, ds):
+    """The tuner (core/tune.py) on the card, on phase 4's vectors, queries
+    and exact ground truth, every search on the kernels: (a)
+    tune_early_term on phase 4's graph at W=4, L=96 over TUNE_Q queries,
+    the tuned and untuned configs then served in turns over the other
+    queries; (b) tune_quant_kind(pq_m=16) on the same graph (five
+    quantizer trainings at 1M); (c) tune_config over the IVF kinds at 1M
+    with 5,000 tune and 5,000 holdout queries; (d) tune_config over the
+    graph kinds at N_TUNE_GRAPH vectors (a cut: PERF.md §4)."""
+    import torch
+    from repro_torch.core import tune
+    from repro_torch.core.index import KBest
+    from repro_torch.data.vectors import exact_topk_device
+    from repro_torch.kernels import ops
+
+    rep = REPORT["tuner"] = {}
+    kern = dataclasses.replace(idx.config.search, dist_impl="kernel",
+                               beam_width=4, L=MAIN_L)
+    # phase 4's graph, searched on the kernels by default (the clones of
+    # tune_quant_kind search with their index's config)
+    kidx = KBest(dataclasses.replace(idx.config, search=kern), device=DEVICE)
+    kidx._set_state(idx.db, idx.graph, idx.entry, idx.order)
+    tq, tgt = ds.queries[:TUNE_Q], ds.gt_ids[:TUNE_Q]
+    hq, hgt = ds.queries[TUNE_Q:], ds.gt_ids[TUNE_Q:]
+
+    # (a) the paper's two-stage (t, tau_max) search
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = tune._memo_eval(kidx, tq, tgt)
+    tuned = tune.tune_early_term(kidx, tq, tgt, kern, _ev=ev)
+    sync()
+    et_s = time.perf_counter() - t0
+    rec0, hops0 = ev(dataclasses.replace(kern, early_term=False))
+    rec_t, hops_t = ev(tuned)
+    floor = min(0.95, rec0) - 0.005
+    log(f"[tuner] ET search over {TUNE_Q} queries: {len(ev.cache)} configs "
+        f"measured in {et_s:.1f} s; no ET: recall@10 {rec0:.4f}, hops "
+        f"{hops0:.1f}; tuned t={tuned.et_t_frac} patience "
+        f"{tuned.et_patience} (ET {tuned.early_term}): recall@10 "
+        f"{rec_t:.4f} (floor {floor:.4f}), hops {hops_t:.1f}")
+    assert rec_t >= floor and hops_t <= hops0, (rec_t, floor, hops_t, hops0)
+    served = {}
+    for name, s in (("untuned", kern), ("tuned", tuned), ("tuned", tuned),
+                    ("untuned", kern)):
+        served.setdefault(name, []).append(serve(kidx, hq, hgt, s)[1])
+    counts = ops.launch_counts()
+    for name in ("fused_expand", "gather_dist"):
+        assert counts[name] > 0, counts
+    rep["early_term"] = dict(
+        configs_measured=len(ev.cache), seconds=et_s, floor=floor,
+        no_et=dict(recall=rec0, hops=hops0),
+        tuned=dict(recall=rec_t, hops=hops_t, t_frac=tuned.et_t_frac,
+                   patience=tuned.et_patience, early_term=tuned.early_term),
+        untuned=dict(t_frac=kern.et_t_frac, patience=kern.et_patience,
+                     early_term=kern.early_term),
+        holdout=served, launches=counts)
+    for name, rows in served.items():
+        log(f"[tuner] {name} on the other {len(hq)} queries, in turns: "
+            f"recall@10 {rows[0]['recall']:.4f}, hops/q "
+            f"{rows[0]['hops_per_query']:.1f}, QPS "
+            + " / ".join(f"{r['qps']:.0f}" for r in rows))
+
+    # (b) the quant-kind sweep over the registry on the built graph
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    best, qrows = tune.tune_quant_kind(kidx, tq, tgt, pq_m=16)
+    sync()
+    qk_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for name in ("fused_expand_sq", "fused_expand_pq", "fused_expand_pq4",
+                 "fused_expand_bin", "fused_expand"):
+        assert counts[name] > 0, counts
+    rep["quant_kind"] = dict(best=best, rows=qrows, seconds=qk_s,
+                             launches=counts)
+    log(f"[tuner] tune_quant_kind(pq_m=16), {qk_s:.1f} s: chose {best}; "
+        + ", ".join(f"{r['quant']} {r['recall']:.4f} ({r['code_bytes']} B)"
+                    for r in qrows))
+    del kidx
+    torch.cuda.empty_cache()
+
+    # (c) the full-knob tuner over the IVF kinds at 1M
+    n_half = len(ds.queries) // 2
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tune.tune_config(ds.base, ds.queries, ds.gt_ids, metric=ds.metric,
+                           index_type="ivf", k=10, recall_slo=TUNE_SLO,
+                           dist_impl="kernel", device=DEVICE)
+    sync()
+    ivf_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_tune_result(res, "ivf")
+    assert counts["gather_dist"] > 0 and sum(
+        counts[k] for k in ("ivf_scan", "pq4_ivf_scan", "bin_ivf_scan")) > 0
+    rep["ivf"] = tune_summary(res, ivf_s, counts)
+    log(f"[tuner] tune_config ivf, n={len(ds.base)}, {n_half} + "
+        f"{len(ds.queries) - n_half} queries, SLO {TUNE_SLO}, "
+        f"{ivf_s:.1f} s: grid {res.grid_size}, deduped {res.n_deduped}, "
+        f"measured {res.n_measured}; winner {json.dumps(rep['ivf']['winner'])}"
+        f", recall tune {res.recall_tune:.4f}, holdout "
+        f"{res.recall_holdout:.4f}; notes {res.notes}")
+    torch.cuda.empty_cache()
+
+    # (d) the full-knob tuner over the graph kinds at N_TUNE_GRAPH
+    base = ds.base[:N_TUNE_GRAPH]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gt = exact_topk_device(base, ds.queries, 10, ds.metric, DEVICE)
+    res = tune.tune_config(base, ds.queries, gt, metric=ds.metric,
+                           index_type="graph", k=10, recall_slo=TUNE_SLO,
+                           dist_impl="kernel", device=DEVICE)
+    sync()
+    graph_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_tune_result(res, "graph")
+    assert counts["batch_dist"] > 0 and counts["gather_dist"] > 0, counts
+    rep["graph"] = tune_summary(res, graph_s, counts)
+    log(f"[tuner] tune_config graph, n={N_TUNE_GRAPH}, {graph_s:.1f} s "
+        f"(ground truth included): grid {res.grid_size}, deduped "
+        f"{res.n_deduped}, measured {res.n_measured}; winner "
+        f"{json.dumps(rep['graph']['winner'])}, recall tune "
+        f"{res.recall_tune:.4f}, holdout {res.recall_holdout:.4f}; notes "
+        f"{res.notes}")
+    for tag in ("ivf", "graph"):
+        for r in rep[tag]["rows"]:
+            log(f"[tuner {tag}] {r['kind']} L={r['L']} nprobe={r['nprobe']} "
+                f"W={r['beam_width']} rf={r['rescore_factor']}: pred "
+                f"{r['pred_us']:.2f} us/q, recall {r['recall']:.4f}, hops "
+                f"{r['hops']:.1f}")
+    torch.cuda.empty_cache()
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1996,7 +2246,10 @@ def main() -> int:
     icounts, ivf_pq = timed("ivf", phase_ivf, ds, none_rec)
     sharded = timed("sharded", phase_sharded, idx, ds, none_rec, ivf_pq)
     timed("serving", phase_serving, idx, sharded, ivf_pq, ds)
-    del idx, sharded, ivf_pq
+    del sharded, ivf_pq
+    torch.cuda.empty_cache()
+    timed("tuner", phase_tuner, idx, ds)
+    del idx
     torch.cuda.empty_cache()
     path_counts = dict(main=counts, quant=qcounts, pq4_bin=bcounts,
                        ivf=icounts)

@@ -1,21 +1,30 @@
-"""The query-cost half of the JAX package's `repro/analysis/cost.py`
-(DESIGN.md §16): closed-form FLOPs, bytes and distance counts per kernel
+"""Check 7 and the query cost model: the port's counterpart of the JAX
+package's `repro/analysis/cost.py` (DESIGN.md §16).
+
+The query half: closed-form FLOPs, bytes and distance counts per kernel
 call (`KERNEL_COSTS`), composed into the cost of one search batch
 
   graph:  seed-dist cost + ceil(hops/W) x fused-expand cost + rerank
   ivf:    coarse probe (Q x nlist) + nprobe x padded list scan + rerank
 
 and `predict_service_s`, the prior of the serving tier's latency model
-(`serve.degrade.LatencyModel`) and of `configs.kbest.degrade_ladder`.
+(`serve.degrade.LatencyModel`), of `configs.kbest.degrade_ladder` and the
+price `core/tune.py` orders its candidates by.
 
 Every number here is the reference's, and none is a figure of the H100:
 the roofline constants are a Kunpeng 920 socket's, the widths are padded to
 the TPU's LANE of 128, and the ADC kernels are priced as the reference's
 one-hot MXU matmuls. The prior only ORDERS configs and buckets — the
 latency model calibrates its scale against measured dispatches on the
-card — so with the same numbers the admission decisions and degrade
-ladders equal the reference's. The AST half (grid extraction, the lint
-check and its report) is not ported.
+card — so with the same numbers the admission decisions, degrade ladders
+and the tuner's pruning equal the reference's.
+
+The check half (`run`, `cost_model`, `report`): every kernel that
+parity.find_kernels discovers has a KERNEL_COSTS entry whose expressions
+resolve under `bindings` to positive numbers, and no entry is stale. The
+reference's AST grid extraction (the pallas_call `grid=` and its BlockSpec
+DMA bound) has no counterpart: the port's launch geometry lives in the
+C++ launchers, and a block's shared memory is smem_budget's.
 
 Pure stdlib: the model never imports the code it prices.
 """
@@ -24,6 +33,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.analysis.common import Tree, Violation
+from repro_torch.analysis.parity import find_kernels
 
 # Roofline constants for the paper's target part (Kunpeng 920-class
 # socket: 48 cores x 2.6 GHz x 2 NEON pipes x 4 f32 lanes ~ 1 Tf32/s;
@@ -402,3 +414,123 @@ def predict_service_s(config, search=None, Q: int = 1, n: int = 0) -> float:
     (SearchConfig, bucket) keys is load-bearing here — the ordering the
     reference's roofline bench validates (Spearman rho vs live runs)."""
     return search_cost(workload_from(config, search, n=n, Q=Q)).seconds
+
+
+# --------------------------------------------------------- check + report
+
+CHECK = "cost"
+COST_FILE = "src/repro_torch/analysis/cost.py"
+
+
+@dataclasses.dataclass
+class CostEstimate:
+    """Per-kernel row of the cost report."""
+    name: str
+    path: str
+    line: int
+    flops: float           # closed-form, per call at the bound workload
+    hbm_bytes: float
+    cands: float
+    notes: List[str]
+
+    @property
+    def intensity(self) -> float:
+        return self.flops / self.hbm_bytes if self.hbm_bytes else 0.0
+
+
+def estimate(tree: Tree, w: Workload = DEFAULT_WORKLOAD
+             ) -> List[CostEstimate]:
+    """One row per discovered kernel; never raises — unresolvable pieces
+    land in .notes (run() promotes them to violations)."""
+    out: List[CostEstimate] = []
+    for rel, name, lineno in find_kernels(tree):
+        notes: List[str] = []
+        flops = hbm = cands = 0.0
+        if name in KERNEL_COSTS:
+            try:
+                flops, hbm, cands = kernel_cost(name, w)
+            except Exception as e:
+                notes.append(f"formula failed: {e!r}")
+        else:
+            notes.append("no closed-form cost formula in KERNEL_COSTS")
+        out.append(CostEstimate(name, rel, lineno, flops, hbm, cands, notes))
+    return out
+
+
+def run(tree: Tree) -> List[Violation]:
+    violations: List[Violation] = []
+    found = set()
+    for est in estimate(tree):
+        found.add(est.name)
+        for note in est.notes:
+            violations.append(Violation(
+                CHECK, est.path, est.line,
+                f"kernel '{est.name}' has no resolvable closed-form cost "
+                f"({note}) — add a KERNEL_COSTS entry / fix the symbols "
+                f"so the model covers the whole kernel surface"))
+        if not est.notes and (est.flops <= 0 or est.hbm_bytes <= 0
+                              or est.cands < 0):
+            violations.append(Violation(
+                CHECK, est.path, est.line,
+                f"kernel '{est.name}' cost evaluates non-positive "
+                f"(flops={est.flops}, bytes={est.hbm_bytes})"))
+    # stale registry entries — only meaningful when the tree carries the
+    # real kernel surface (fixture trees hold a single alien kernel)
+    if found & set(KERNEL_COSTS):
+        for name in sorted(set(KERNEL_COSTS) - found):
+            violations.append(Violation(
+                CHECK, COST_FILE, 1,
+                f"KERNEL_COSTS entry '{name}' matches no discovered "
+                f"kernel (stale formula)"))
+    return violations
+
+
+_QUERY_ROWS = (("graph", "none"), ("graph", "sq"), ("graph", "pq"),
+               ("graph", "pq4"), ("graph", "bin"),
+               ("ivf", "pq"), ("ivf", "pq4"), ("ivf", "bin"))
+
+
+def _query_table(w: Workload) -> List[dict]:
+    rows = []
+    for index_type, kind in _QUERY_ROWS:
+        wk = dataclasses.replace(w, index_type=index_type, kind=kind)
+        qc = search_cost(wk)
+        rows.append({"config": f"{index_type}/{kind}",
+                     "n_dist": qc.n_dist,
+                     "flops": qc.flops, "hbm_bytes": qc.hbm_bytes,
+                     "t_compute": qc.t_compute, "t_memory": qc.t_memory,
+                     "dominant": qc.dominant,
+                     "us_per_query": qc.us_per_query})
+    return rows
+
+
+def cost_model(tree: Tree, w: Workload = DEFAULT_WORKLOAD) -> dict:
+    """Machine-readable model dump (--json)."""
+    return {
+        "workload": dataclasses.asdict(w),
+        "constants": {"peak_flops": PEAK_FLOPS, "mem_bw": MEM_BW},
+        "kernels": [dataclasses.asdict(e) for e in estimate(tree, w)],
+        "queries": _query_table(w),
+    }
+
+
+def report(tree: Tree, w: Workload = DEFAULT_WORKLOAD) -> str:
+    """--report table: per-kernel closed forms + per-query composition
+    (the reference's Kunpeng constants; no figure of the H100)."""
+    rows = [f"{'kernel':<18} {'GFLOP/call':>11} {'MB/call':>9} "
+            f"{'F/B':>6}  notes"]
+    for e in estimate(tree, w):
+        rows.append(f"{e.name:<18} {e.flops / 1e9:>11.3f} "
+                    f"{e.hbm_bytes / 1e6:>9.2f} {e.intensity:>6.1f}  "
+                    f"{'; '.join(e.notes)}")
+    rows.append("")
+    rows.append(f"per-query composition at n={w.n} d={w.d} L={w.L} "
+                f"W={w.W} nprobe={w.nprobe} (Q={w.Q}):")
+    rows.append(f"{'config':<12} {'n_dist':>8} {'GFLOP':>8} {'MB':>8} "
+                f"{'us/q':>8}  bound")
+    for r in _query_table(w):
+        rows.append(f"{r['config']:<12} {r['n_dist']:>8.0f} "
+                    f"{r['flops'] / 1e9:>8.3f} "
+                    f"{r['hbm_bytes'] / 1e6:>8.2f} "
+                    f"{r['us_per_query']:>8.1f}  {r['dominant']}")
+    return "\n".join(rows)

@@ -5,9 +5,9 @@ A copy of the index presets of the JAX package's `repro/configs/kbest.py`
 (graph: `index_config`, `beam_index_config`, `sq_index_config`,
 `bin_index_config`, `smoke_config`; IVF: `ivf_index_config`,
 `ivf_pq4_index_config`, `ivf_bin_index_config`, `ivf_smoke_config`; the
-sharded presets of DESIGN.md §12, `full_config` and the serving tier's
-`degrade_ladder`), with the same values, so a preset names the same index
-in both packages.
+sharded presets of DESIGN.md §12, `full_config`, the tuner's `tune_grid`
+and the serving tier's `degrade_ladder`), with the same values, so a
+preset names the same index in both packages.
 
     from repro_torch.configs import kbest
     cfg = kbest.beam_index_config("deep_like")
@@ -208,6 +208,19 @@ def sharded_smoke_config(n_shards: int = 2) -> IndexConfig:
 
 def full_config(dataset: str = "bigann_like") -> IndexConfig:
     return index_config(dataset)
+
+
+def tune_grid(index_type: str) -> dict:
+    """Search-knob grid core/tune.py::tune_config sweeps (DESIGN.md §16),
+    the reference's. Quant kinds are not enumerated here: the tuner takes
+    them from the registry (types.QUANT_KINDS /
+    quantize.IVF_QUANT_KINDS). rescore_factor only fans out for
+    kind="bin", the only kind that reads it."""
+    if index_type == "ivf":
+        return {"L": (32, 64, 128, 256), "nprobe": (4, 8, 16, 32, 64),
+                "rescore_factor": (8, 32)}
+    return {"L": (32, 64, 128, 256), "beam_width": (1, 4),
+            "rescore_factor": (8, 32)}
 
 
 def degrade_ladder(cfg: IndexConfig, n_rungs: int = 4) -> tuple:
