@@ -77,7 +77,19 @@ Phases:
      1M graph build would cost about 90 s), each held to the reference's
      invariants (at most half the grid measured, rows cheapest-first,
      the winner the first row at SLO + margin, else the best measured
-     with a note).
+     with a note);
+ 11. the RecSys family (models/recsys.py) at each arch's full_config()
+     (10^6 ids a field or items, the assigned widths, f32): fm, deepfm,
+     bst and bert4rec each take 20 AdamW steps through the port's Trainer
+     on the pipeline's streams (B=65,536; bert4rec B=8 with the full
+     loss and B=32 with 40 masked positions), bst once more with a failure
+     injected at step 12 and a resume from its step-10 checkpoint, held to
+     the uninterrupted run; serve_step at 512 and 262,144 rows (bert4rec
+     16,384); exact retrieval on batch_dist against the plain path at 1
+     and 512 queries over the 10^6 candidates; and a KBest graph over
+     bst's item table (the reference example's config at full width)
+     searched with 512 query vectors, its recall@10 against the exact
+     top-10.
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -124,6 +136,25 @@ OVERLOAD_REQUESTS = 2000
 # phase 10: the ET search's queries (the rest are its holdout), the IVF
 # tuner's SLO and the graph tuner's corpus, cut from 1M (PERF.md §4)
 TUNE_Q, TUNE_SLO, N_TUNE_GRAPH = 1000, 0.90, 100_000
+# phase 11, the RecSys family at full width (PERF.md §4): 20 AdamW steps
+# a training run (steps 5-19 timed); training batches (the assigned
+# train_batch, cut for bert4rec: its (B, 200, 10^6) logits take 6.4 GB a
+# copy at B=8); the masked-loss run's batch and positions; the serving
+# batches (serve_p99 and serve_bulk, bulk cut for bert4rec: its (B, 2,
+# 200, 200) attention scores take about 84 GB at 262,144); the retrieval
+# widths of the configs' candidate tables and the top-k
+RECSYS_ARCHS = ("fm", "deepfm", "bst", "bert4rec")
+TRAIN_STEPS, TRAIN_TIMED_FROM = 20, 5
+TRAIN_B = dict(fm=65_536, deepfm=65_536, bst=65_536, bert4rec=8)
+B4R_MASKED_B, B4R_MASKED_P = 32, 40
+SERVE_P99, SERVE_BULK = 512, 262_144
+SERVE_BULK_B = dict(fm=SERVE_BULK, deepfm=SERVE_BULK, bst=SERVE_BULK,
+                    bert4rec=16_384)
+RETRIEVAL_DIMS, RETRIEVAL_K = (10, 32, 64), 100
+# bst's checkpoint test: the injected failure's step, the save cadence, and
+# the tolerance against the uninterrupted run (a thirtieth of one AdamW
+# step at lr 3e-4: the card's index backward may add in another order)
+RESUME_FAIL_AT, RESUME_EVERY, RESUME_ATOL = 12, 5, 1e-5
 FUSED_STEPS = ("fused_expand", "fused_expand_sq", "fused_expand_pq",
                "fused_expand_pq4", "fused_expand_bin")
 
@@ -344,17 +375,17 @@ def phase_lint(build_logs: dict) -> dict:
 # --------------------------------------------------------------------------
 # phase 2
 # --------------------------------------------------------------------------
-def separated_ids_equal(out, exp):
+def separated_ids_equal(out, exp, width: float = ATOL):
     """(ok, slots): the sorted ids agree wherever a distance is apart from
-    both neighbours by more than ATOL (near-ties may swap)."""
+    both neighbours by more than `width` (near-ties may swap)."""
     import torch
     sd = exp[0]
     gap_l = torch.ones_like(sd, dtype=torch.bool)
     gap_r = torch.ones_like(sd, dtype=torch.bool)
     dd = (sd[:, 1:] - sd[:, :-1]).abs()
     dd = torch.where(torch.isnan(dd), torch.zeros_like(dd), dd)
-    gap_l[:, 1:] = dd > ATOL
-    gap_r[:, :-1] = dd > ATOL
+    gap_l[:, 1:] = dd > width
+    gap_r[:, :-1] = dd > width
     sep = gap_l & gap_r
     return bool((out[1][sep] == exp[1][sep]).all()), int(sep.sum())
 
@@ -771,12 +802,31 @@ def kernel_cases(inp: dict) -> "list[Case]":
             lambda P=P: (probes(P),), exact=True, scan=True)
 
     # ---- batch_dist: Q x n x d, both metrics; a 4 GB output a call ----
+    def dist_cost(qq, xx):
+        (nq, dd), nb = qq.shape, xx.shape[0]
+        return (nq * dd + nb * dd + nq * nb) * 4, 2.0 * nq * nb * dd
+
     for mt in ("ip", "l2"):
         add("batch_dist", f"Q={Q} B={n} d={d} {mt}", mt == "ip", False,
-            lambda mt=mt: ops.batch_dist(q, db, metric=mt),
-            lambda mt=mt: ref.batch_dist_ref(q, db, mt),
-            lambda: ((Q * d + n * d + Q * n) * 4, 2.0 * Q * n * d),
-            lambda: ())
+            lambda qq, xx, mt=mt: ops.batch_dist(qq, xx, metric=mt),
+            lambda qq, xx, mt=mt: ref.batch_dist_ref(qq, xx, mt),
+            dist_cost, lambda: (q, db))
+    # ---- and at the RecSys retrieval shapes (phase 11): one query or a
+    # serving batch of 512 against 10^6 candidate rows of the configs'
+    # widths (d=10: fm and deepfm, rows not 16-byte aligned; 32: bst; 64:
+    # bert4rec), ip; fresh tables a set, so the rows come from HBM; their
+    # own generator, so the cases below keep their inputs ----
+    gr = torch.Generator(device=dev).manual_seed(11)
+    for dd in RETRIEVAL_DIMS:
+        for nq in (1, SERVE_P99):
+            add("batch_dist", f"Q={nq} B={n} d={dd} ip (retrieval)", False,
+                False,
+                lambda qq, xx: ops.batch_dist(qq, xx, metric="ip"),
+                lambda qq, xx: ref.batch_dist_ref(qq, xx, "ip"),
+                dist_cost,
+                lambda nq=nq, dd=dd: (
+                    torch.randn((nq, dd), generator=gr, device=dev),
+                    0.02 * torch.randn((n, dd), generator=gr, device=dev)))
 
     # ---- the gathers where else they run (drawn last, so the cases above
     # keep their inputs): gather_dist at the exact re-rank depths M=40
@@ -1050,10 +1100,16 @@ def phase_kernels(db):
         t = dict(ms=cuda_ms(lambda: c.kern(*c.sets[0])),
                  plain_ms=cuda_ms(lambda: c.plain(*c.sets[0])))
         if c.name == "batch_dist":
-            # its launch is a negligible share of a call; no graph
-            t.update(device_ms=t["ms"], plain_device_ms=t["plain_ms"])
-            lib = ("torch.matmul", cuda_ms(
-                lambda: torch.matmul(inp["q"], db.T)))
+            # its launch is a negligible share of a call at Q >= 512 (no
+            # graph: each replayed call would hold its own output); the
+            # one-query retrieval's device time comes from graph replay
+            if c.sets[0][0].shape[0] == 1:
+                t.update(device_ms=graph_ms(c.kern, c.sets),
+                         plain_device_ms=graph_ms(c.plain, c.sets))
+            else:
+                t.update(device_ms=t["ms"], plain_device_ms=t["plain_ms"])
+            qq, xx = c.sets[0]
+            lib = ("torch.matmul", cuda_ms(lambda: torch.matmul(qq, xx.T)))
         elif c.scan:
             # the plain scans gather whole lists per query: events only
             t.update(device_ms=graph_ms(c.kern, c.sets),
@@ -2213,6 +2269,297 @@ def phase_tuner(idx, ds):
                 f"{r['hops']:.1f}")
     torch.cuda.empty_cache()
 
+
+# --------------------------------------------------------------------------
+# phase 11
+# --------------------------------------------------------------------------
+def recsys_batch(cfg, B, g) -> dict:
+    """A seeded serving batch of cfg's kind on the card (bert4rec's with
+    its candidates)."""
+    import torch
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=g.device,
+                             dtype=torch.int32)
+    if cfg.kind in ("fm", "deepfm"):
+        return {"sparse_ids": ints(cfg.vocab_per_field, (B, cfg.n_sparse))}
+    if cfg.kind == "bst":
+        return {"hist": ints(cfg.n_items, (B, cfg.seq_len)),
+                "target": ints(cfg.n_items, (B,))}
+    return {"seq": ints(cfg.n_items, (B, cfg.seq_len)),
+            "cand": ints(cfg.n_items, (B,))}
+
+
+def train_stream(cfg, B):
+    """The pipeline's stream for cfg's kind (numpy; the Trainer moves each
+    batch to the card)."""
+    from repro_torch.data.pipeline import ctr_batches, seq_batches
+    if cfg.kind in ("fm", "deepfm"):
+        return ctr_batches(cfg.n_sparse, cfg.vocab_per_field, B)
+    return seq_batches(cfg.kind, cfg.n_items, B, cfg.seq_len)
+
+
+def train_run(cfg, B, params, ckpt_dir, data=None, **trainer_kw):
+    """TRAIN_STEPS AdamW steps through the port's Trainer on the card,
+    from `params` (untouched: updates are functional), on the pipeline's
+    stream behind a Prefetcher unless `data` is given; returns the
+    Trainer and fit's output."""
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.models import recsys as R
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptConfig
+    trainer = Trainer(lambda p, b: R.loss_fn(p, b, cfg), OptConfig(),
+                      TrainerConfig(ckpt_dir=ckpt_dir, log_every=1,
+                                    **trainer_kw), device=DEVICE)
+    if data is None:
+        data = Prefetcher(train_stream(cfg, B))
+    return trainer, trainer.fit(params, data, n_steps=TRAIN_STEPS)
+
+
+def recsys_train(tag, cfg, B, params) -> "tuple[dict, dict]":
+    """One training run: its record and its output."""
+    import numpy as np
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    from repro_torch.train.tree import to_tensor
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        trainer, out = train_run(cfg, B, params, tmp)
+        wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in out["history"]]
+    assert [h["step"] for h in out["history"]] == list(range(TRAIN_STEPS))
+    assert all(np.isfinite(losses)), (tag, losses)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else 0.0)
+    # the step alone: one batch already on the card, no data wait
+    batch = {k: to_tensor(v, DEVICE)
+             for k, v in next(train_stream(cfg, B)).items()}
+    dev_ms = cuda_ms(lambda: trainer.step_fn(out["params"], out["opt"],
+                                             batch), reps=5, warmup=1)
+    rec = dict(batch=B, step_ms=1e3 * float(np.median(
+        [h["sec"] for h in out["history"][TRAIN_TIMED_FROM:]])),
+        step_device_ms=dev_ms, peak_gib=peak, first_loss=losses[0],
+        last_loss=losses[-1], wall_s=wall)
+    log(f"[recsys {tag}] train B={B}: step {rec['step_ms']:.2f} ms (median "
+        f"of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS - 1}, data wait "
+        f"included; {dev_ms:.2f} ms on a batch already on the card), peak "
+        f"{peak:.2f} GiB, loss {rec['first_loss']:.5f} -> "
+        f"{rec['last_loss']:.5f}, {wall:.1f} s for {TRAIN_STEPS} steps and "
+        f"the final save")
+    return rec, out
+
+
+def recsys_resume(cfg, B, params, full) -> dict:
+    """bst's checkpoint and resume: a run that fails at RESUME_FAIL_AT
+    after saves every RESUME_EVERY steps, then a resume to TRAIN_STEPS,
+    held to the uninterrupted run `full` within RESUME_ATOL (the card's
+    index backward may sum in another order), and one synchronous save
+    and restore of the whole state, timed."""
+    import itertools
+    import torch
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.loop import SimulatedFailure
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            train_run(cfg, B, params, tmp, fail_at_step=RESUME_FAIL_AT,
+                      ckpt_every=RESUME_EVERY)
+            raise AssertionError("the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        last = ck.latest_step(tmp)
+        assert last == RESUME_FAIL_AT // RESUME_EVERY * RESUME_EVERY, last
+        _, out = train_run(cfg, B, params, tmp, ckpt_every=RESUME_EVERY,
+                           data=itertools.islice(train_stream(cfg, B), last,
+                                                 None))
+        resume_s = time.perf_counter() - t0
+        assert out["history"][0]["step"] == last
+        state = {"params": out["params"], "opt": out["opt"]}
+        sync()
+        t0 = time.perf_counter()
+        path = ck.save(f"{tmp}/timed", TRAIN_STEPS, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        mib = sum(f.stat().st_size for f in Path(path).iterdir()) / 2 ** 20
+        t0 = time.perf_counter()
+        back = ck.restore(f"{tmp}/timed", TRAIN_STEPS, state, DEVICE)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    from repro_torch.train.tree import leaves
+    assert all(torch.equal(a, b) for a, b in zip(leaves(back),
+                                                 leaves(state)))
+    pairs = list(zip(leaves(out["params"]), leaves(full["params"])))
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    loss_diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(
+        out["history"], full["history"][last:]))
+    rec = dict(fail_at=RESUME_FAIL_AT, resumed_from=last, resume_s=resume_s,
+               params_max_abs_diff=diff, bit_equal=bit_equal,
+               loss_max_abs_diff=loss_diff, save_ms=save_ms,
+               restore_ms=restore_ms, ckpt_mib=mib)
+    log(f"[recsys bst] resume: failed at step {RESUME_FAIL_AT}, resumed "
+        f"from {last} to {TRAIN_STEPS} ({resume_s:.1f} s in all); params "
+        f"against the uninterrupted run: max abs diff {diff:.3e} "
+        f"(bit-equal {bit_equal}), losses {loss_diff:.3e}; save "
+        f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms, {mib:.1f} MiB")
+    assert diff <= RESUME_ATOL and loss_diff <= RESUME_ATOL, rec
+    return rec
+
+
+def recsys_serve(tag, cfg, params, g) -> dict:
+    """serve_step at serve_p99 and serve_bulk (cut for bert4rec)."""
+    import torch
+    from repro_torch.models import recsys as R
+    rows = {}
+    for B in (SERVE_P99, SERVE_BULK_B[cfg.kind]):
+        batch = recsys_batch(cfg, B, g)
+        out = R.serve_step(params, batch, cfg)
+        assert out.shape == (B,) and bool(torch.isfinite(out).all()), tag
+        ms = cuda_ms(lambda: R.serve_step(params, batch, cfg), reps=5)
+        rows[B] = dict(ms=ms, rows_per_s=B / ms * 1e3)
+        log(f"[recsys {tag}] serve_step B={B}: {ms:.3f} ms, "
+            f"{B / ms * 1e3:,.0f} rows/s")
+    return rows
+
+
+def recsys_retrieval(tag, cfg, params, g) -> "tuple[dict, object]":
+    """Exact retrieval over the 10^6 candidates: serve_retrieval on the
+    batch_dist kernel against its plain path at Q=1 and Q=SERVE_P99, each
+    path's ms; returns the rows and the Q=SERVE_P99 plain top-k ids."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+    rows, ids512 = {}, None
+    n, d = R.candidate_table(params, cfg).shape
+    for Q in (1, SERVE_P99):
+        batch = recsys_batch(cfg, Q, g)
+        before = ops.launch_counts()["batch_dist"]
+        kd, ki = R.serve_retrieval(params, batch, cfg, k=RETRIEVAL_K,
+                                   use_kernel=True)
+        launches = ops.launch_counts()["batch_dist"] - before
+        pd, pi = R.serve_retrieval(params, batch, cfg, k=RETRIEVAL_K)
+        ok, err = close(kd, pd)
+        ids_ok, n_sep = separated_ids_equal((kd, ki), (pd, pi))
+        assert launches == 1 and ok and ids_ok, (tag, Q, launches, err)
+        assert bool(((ki >= 0) & (ki < n)).all()), tag
+        # ATOL lies above fm's whole range of distances (tables at scale
+        # 0.01): hold the error to RTOL of the distances' own scale as
+        # well, and the ids wherever neighbours lie apart by more than
+        # twice the error measured
+        scale = float(pd.abs().max())
+        ids_ok, n_apart = separated_ids_equal((kd, ki), (pd, pi), 2 * err)
+        assert err <= RTOL * scale and ids_ok, (tag, Q, err, scale)
+        kms = cuda_ms(lambda: R.serve_retrieval(
+            params, batch, cfg, k=RETRIEVAL_K, use_kernel=True), reps=5)
+        pms = cuda_ms(lambda: R.serve_retrieval(
+            params, batch, cfg, k=RETRIEVAL_K), reps=5)
+        rows[Q] = dict(d=d, kernel_ms=kms, plain_ms=pms, max_abs_err=err,
+                       dist_scale=scale, separated_ids=n_sep,
+                       ids_apart=n_apart)
+        log(f"[recsys {tag}] retrieval Q={Q} x {n:,}, d={d}, "
+            f"k={RETRIEVAL_K}: kernel path {kms:.3f} ms, plain {pms:.3f} "
+            f"ms, max err {err:.2e} (distances up to {scale:.2e}); ids "
+            f"equal on the {n_sep} slots apart by ATOL and the {n_apart} "
+            f"apart by twice the error, of {ki.numel()}")
+        if Q == SERVE_P99:
+            ids512 = (batch, pi)
+    return rows, ids512
+
+
+def recsys_ann(cfg, params, batch, exact_ids) -> dict:
+    """The reference example (examples/retrieval_recsys.py) at full width:
+    a KBest graph over bst's 10^6 x 32 item table (ip, exact kNN builder,
+    M=24, knn_k=32, L=64, early termination on), searched with the
+    query vectors of a serving batch; recall@10 against the exact top-10."""
+    import numpy as np
+    import torch
+    from repro_torch.core.index import KBest
+    from repro_torch.core.types import BuildConfig, IndexConfig, SearchConfig
+    from repro_torch.data.vectors import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+    corpus = R.candidate_table(params, cfg).contiguous()
+    q = R.query_vector(params, batch, cfg).detach().contiguous()
+    icfg = IndexConfig(
+        dim=corpus.shape[1], metric="ip",
+        build=BuildConfig(M=24, knn_k=32, builder="brute", refine_iters=1),
+        search=SearchConfig(L=64, k=10, early_term=True, dist_impl="kernel"))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    idx = KBest(icfg, device=DEVICE).add(corpus.cpu().numpy(),
+                                         timings=StageLog("ann"))
+    sync()
+    build_s = time.perf_counter() - t0
+    idx.search(q, search_cfg=icfg.search)                       # warm
+    sync()
+    t0 = time.perf_counter()
+    _, ids = idx.search(q, search_cfg=icfg.search)
+    sync()
+    wall = time.perf_counter() - t0
+    after = ops.launch_counts()
+    ids = ids.cpu().numpy()
+    assert ((ids >= 0) & (ids < corpus.shape[0])).all()
+    recall = recall_at_k(ids, exact_ids[:, :10].cpu().numpy(), 10)
+    rec = dict(build_s=build_s, recall_at_10=recall, qps=len(q) / wall,
+               queries=len(q), stages={k: round(v, 3)
+                                       for k, v in idx.build_times.items()},
+               launches={k: after[k] - before[k] for k in after
+                         if after[k] > before[k]})
+    log(f"[recsys ann] KBest over bst's {corpus.shape[0]:,} x "
+        f"{corpus.shape[1]} item table: build {build_s:.1f} s, recall@10 "
+        f"{recall:.4f} against the exact top-10 of {len(q)} queries, "
+        f"{rec['qps']:,.0f} QPS (W=1, L=64); launches {rec['launches']}")
+    assert recall > 0, rec
+    del idx
+    return rec
+
+
+def phase_recsys():
+    """The RecSys family at full width: each arch's full_config() trained
+    (20 AdamW steps through the Trainer), bst's resume after an injected
+    failure, serve_step at serve_p99 and serve_bulk, exact retrieval on
+    batch_dist against the plain path at Q=1 and 512, and the ANN
+    retrieval over bst's item table."""
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.models import recsys as R
+    from repro_torch.kernels import ops
+    rep = REPORT["recsys"] = {}
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    before = ops.launch_counts()["batch_dist"]
+    for i, arch in enumerate(RECSYS_ARCHS):
+        cfg = reg.get(arch).full_config()
+        params = R.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(i))
+        row = rep[arch] = dict(params=R.n_params(params))
+        log(f"[recsys {arch}] full_config: {row['params']:,} params")
+        row["train"], out = recsys_train(arch, cfg, TRAIN_B[arch], params)
+        if arch == "bst":
+            row["resume"] = recsys_resume(cfg, TRAIN_B[arch], params, out)
+        del out
+        if arch == "bert4rec":
+            mcfg = dataclasses.replace(cfg, masked_positions=B4R_MASKED_P)
+            row["train_masked"], out = recsys_train(
+                f"{arch} masked P={B4R_MASKED_P}", mcfg, B4R_MASKED_B,
+                params)
+            del out
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        row["serve"] = recsys_serve(arch, cfg, params, g)
+        row["retrieval"], (batch, exact) = recsys_retrieval(arch, cfg,
+                                                            params, g)
+        if arch == "bst":
+            row["ann"] = recsys_ann(cfg, params, batch, exact)
+        del params
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    # the exact retrievals (checked and timed) and the ANN build's kNN;
+    # none of these count in the main path's launches (phase 4)
+    rep["batch_dist_launches"] = ops.launch_counts()["batch_dist"] - before
+    log(f"[recsys] batch_dist launches in this phase: "
+        f"{rep['batch_dist_launches']}")
+    assert rep["batch_dist_launches"] > 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2251,6 +2598,7 @@ def main() -> int:
     timed("tuner", phase_tuner, idx, ds)
     del idx
     torch.cuda.empty_cache()
+    timed("recsys", phase_recsys)
     path_counts = dict(main=counts, quant=qcounts, pq4_bin=bcounts,
                        ivf=icounts)
     kernels = []

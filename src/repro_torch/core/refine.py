@@ -359,6 +359,7 @@ def _flood(g: np.ndarray, seen: np.ndarray, start: int) -> np.ndarray:
 
 
 _REPAIR_BLOCK = 512     # the reference's block of unreachable nodes
+_REPAIR_BATCH = 256     # most candidate links examined per round trip
 
 
 def connectivity_repair(db: torch.Tensor, graph: np.ndarray, entry: int,
@@ -374,7 +375,20 @@ def connectivity_repair(db: torch.Tensor, graph: np.ndarray, entry: int,
     on db's device, relaxed only by the nodes each link makes reachable,
     and the link is the minimum of (distance, block, reachable id,
     unreachable id) over the nodes still unreachable — the same choice,
-    at a cost that grows with the newly reached nodes instead of n."""
+    at a cost that grows with the newly reached nodes instead of n.
+
+    An inner-product graph over 10^6 random vectors leaves about half its
+    nodes unreachable, so links are taken in rounds of one device round
+    trip each: the nearest unreachable nodes in order, for as long as
+    each is provably the next link. That holds while its distance is
+    unique among the nodes still unreachable and below the distance of
+    every link before it in the round to its own nearest unreachable
+    node (a lower bound on what that link can relax any node to, known
+    before the round; a margin covers the rounding of the two
+    computations), and every link before it reached that one node only.
+    A tie ends the round; a tie at its head takes one link by the
+    reference's whole order. The next round examines twice as many
+    candidates as this one linked (each costs a row of distances)."""
     g = np.asarray(graph).copy()
     n, M = g.shape
     seen = np.zeros(n, dtype=bool)
@@ -385,46 +399,97 @@ def connectivity_repair(db: torch.Tensor, graph: np.ndarray, entry: int,
     dev = db.device
     xu = db[torch.as_tensor(un, device=dev)]
     uu = (xu ** 2).sum(1) if metric == "l2" else None
-    best_d = torch.full((len(un),), float("inf"), device=dev)
-    best_r = torch.full((len(un),), n, dtype=torch.int64, device=dev)
-    alive = torch.ones(len(un), dtype=torch.bool, device=dev)
+    U = len(un)
+    best_d = torch.full((U,), float("inf"), device=dev)
+    best_r = torch.full((U,), n, dtype=torch.int64, device=dev)
+    alive = torch.ones(U, dtype=torch.bool, device=dev)
+    inf = float("inf")
+
+    def chunks(xs: torch.Tensor):
+        """(start, distances of the rows xs to un[start:start+step])."""
+        ss = (xs ** 2).sum(1)[:, None] if metric == "l2" else None
+        step = max(1, (1 << 28) // max(1, len(xs)))   # ~1 GiB of d
+        for s in range(0, U, step):
+            if metric == "l2":
+                yield s, ((ss + uu[None, s:s + step])
+                          - 2.0 * xs @ xu[s:s + step].T)
+            else:
+                yield s, -(xs @ xu[s:s + step].T)
 
     def relax(src: np.ndarray) -> None:
         src_t = torch.as_tensor(src, device=dev)
-        xs = db[src_t]
-        ss = (xs ** 2).sum(1)[:, None] if metric == "l2" else None
-        step = max(1, (1 << 28) // max(1, len(src)))   # ~1 GiB of d
-        for s in range(0, len(un), step):
-            if metric == "l2":
-                d = (ss + uu[None, s:s + step]) - 2.0 * xs @ xu[s:s + step].T
-            else:
-                d = -(xs @ xu[s:s + step].T)
+        for s, d in chunks(db[src_t]):
+            e = s + d.shape[1]
             dmin, row = torch.min(d, dim=0)          # first row on ties
             r = src_t[row]
-            bd, br = best_d[s:s + step], best_r[s:s + step]
+            bd, br = best_d[s:e], best_r[s:e]
             better = (dmin < bd) | ((dmin == bd) & (r < br))
-            best_d[s:s + step] = torch.where(better, dmin, bd)
-            best_r[s:s + step] = torch.where(better, r, br)
+            best_d[s:e] = torch.where(better, dmin, bd)
+            best_r[s:e] = torch.where(better, r, br)
 
-    relax(np.nonzero(seen)[0])
-    big = torch.iinfo(torch.int64).max
-    guard = 0
-    while bool(alive.any()) and guard < n:
-        guard += 1
+    def nearest_alive(cand: torch.Tensor) -> list:
+        """Each candidate's least distance to another unreachable node."""
+        out = torch.full((len(cand),), inf, device=dev)
+        for s, d in chunks(xu[cand]):
+            cols = torch.arange(s, s + d.shape[1], device=dev)
+            ok = (alive[None, s:s + d.shape[1]]
+                  & (cols[None] != cand[:, None]))
+            d = torch.where(ok, d, torch.full_like(d, inf))
+            out = torch.minimum(out, d.min(dim=1).values)
+        return out.tolist()
+
+    def link(i: int, r: int) -> np.ndarray:
+        """Link un[i] from r; returns the nodes this makes reachable."""
+        spare = np.nonzero(g[r] < 0)[0]
+        slot = spare[0] if len(spare) else M - 1   # replace worst (last) edge
+        g[r, slot] = un[i]
+        return _flood(g, seen, int(un[i]))
+
+    def exact_link() -> np.ndarray:
+        """One link by the reference's whole order (distance ties)."""
+        big = torch.iinfo(torch.int64).max
         # the reference's block of each node among those still unreachable
         block = (torch.cumsum(alive.long(), 0) - 1) // _REPAIR_BLOCK
-        dd = torch.where(alive, best_d, torch.full_like(best_d, float("inf")))
+        dd = torch.where(alive, best_d, torch.full_like(best_d, inf))
         cand = alive & (dd == dd.min())
         for key in (block, best_r):
             k = torch.where(cand, key, torch.full_like(key, big))
             cand = cand & (k == k.min())
         i = int(torch.nonzero(cand)[0, 0])
-        r, u = int(best_r[i]), int(un[i])
-        spare = np.nonzero(g[r] < 0)[0]
-        slot = spare[0] if len(spare) else M - 1   # replace worst (last) edge
-        g[r, slot] = u
-        new = _flood(g, seen, u)
+        return link(i, int(best_r[i]))
+
+    relax(np.nonzero(seen)[0])
+    n_alive, guard, batch = U, 0, _REPAIR_BATCH
+    while n_alive and guard < n:
+        dd = torch.where(alive, best_d, torch.full_like(best_d, inf))
+        vals, pos = torch.topk(dd, min(batch + 1, n_alive), largest=False,
+                               sorted=True)
+        v, p, rr = torch.stack([vals.double(), pos.double(),
+                                best_r[pos].double()]).tolist()
+        p = [int(x) for x in p]
+        # the run of candidates with distinct distances; the last one
+        # listed is not known to be distinct unless every node is listed
+        J = next((j for j in range(len(v) - 1) if v[j] == v[j + 1]),
+                 len(v) if len(v) == n_alive else len(v) - 1)
+        if J == 0:
+            reached = [exact_link()]
+            guard += 1
+        else:
+            m = nearest_alive(torch.as_tensor(p[:J], device=dev))
+            reached, low = [], inf
+            for j in range(J):
+                if guard >= n or (j and low <= v[j] + 1e-5 * (
+                        abs(v[j]) + abs(low)) + 1e-30):
+                    break
+                reached.append(link(p[j], int(rr[j])))
+                guard += 1
+                low = min(low, m[j])
+                if len(reached[-1]) > 1:
+                    break
+            batch = min(_REPAIR_BATCH, max(2, 2 * len(reached)))
+        new = np.concatenate(reached)
         alive[torch.as_tensor(np.searchsorted(un, new), device=dev)] = False
-        if bool(alive.any()):
+        n_alive -= len(new)
+        if n_alive:
             relax(new)
     return g

@@ -15,8 +15,8 @@ counterpart of the JAX package's `repro/launch/serve.py --mode ann`.
     # on the host instead of the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-The reference's `--mode lm` (a decode step of a language model) belongs to
-the training substrate, which the port does not have yet.
+The reference's `--mode lm` (a decode step of a language model) needs the
+LM family, which the port does not have yet (ROADMAP queue 1 item 5b).
 """
 from __future__ import annotations
 

@@ -174,6 +174,32 @@ def test_host_passes_match_reference(seed, trailing, bigann_x):
                           rreorder.mst_reorder_global_heap(g, w, 5))
 
 
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_connectivity_repair_many_links_match_reference(metric, seed):
+    """Most nodes unreachable (every edge leads into a few hubs), as in an
+    inner-product graph over random vectors: hundreds of links, each
+    relaxing the rest on the device, must be the reference's links in its
+    order. Small integer vectors make distances exact and ties frequent,
+    so both the distinct-distance path and the reference's full order on
+    ties run."""
+    r = np.random.default_rng(seed)
+    n, M = 700, 8
+    hubs = r.choice(n, size=20, replace=False)
+    g = hubs[r.integers(0, len(hubs), size=(n, M))].astype(np.int32)
+    g[r.random((n, M)) < 0.25] = -1
+    g = -np.sort(-g, axis=1)
+    for a, b in r.integers(0, n, size=(40, 2)):
+        g[a, 0] = b                             # a few chains among the rest
+    x = r.integers(-4, 5, size=(n, 6)).astype(np.float32)
+    x[hubs] *= 2                                # hubs: the longest rows
+    entry = int(hubs[0])
+    out = trefine.connectivity_repair(_t(x), g, entry, metric)
+    exp = rrefine.connectivity_repair(jnp.asarray(x), g, entry, metric)
+    assert np.array_equal(out, exp)
+    assert (out != g).sum() > 50                # dozens of links or more
+
+
 def test_refine_graph_matches_reference(bigann_x, bigann_knn):
     x = bigann_x[:300]
     ids, d = [np.asarray(a) for a in rbuild.brute_force_knn(

@@ -852,7 +852,17 @@ def test_port_imports_neither_jax_nor_reference():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def _port_file_id(path):
+    """The file's name; a file whose name an earlier port file already
+    has (layers/common.py after analysis/common.py) adds its folder, so
+    the earlier file keeps its id. `__init__.py` keeps pytest's numbering."""
+    earlier = [p.name for p in _port_files() if p < path]
+    if path.name in earlier and path.name != "__init__.py":
+        return f"{path.parent.name}/{path.name}"
+    return path.name
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=_port_file_id)
 def test_port_source_has_no_jax_or_reference_import(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
