@@ -87,9 +87,26 @@ Phases:
      the uninterrupted run; serve_step at 512 and 262,144 rows (bert4rec
      16,384); exact retrieval on batch_dist against the plain path at 1
      and 512 queries over the 10^6 candidates; and a KBest graph over
-     bst's item table (the reference example's config at full width)
-     searched with 512 query vectors, its recall@10 against the exact
-     top-10.
+     the first 500,000 rows of bst's item table (the reference example's
+     config at full width, cut from 10^6 to keep the smoke inside its
+     limit) searched with 512 query vectors, its recall@10 against the
+     exact top-10 of those rows;
+ 12. the LM and GNN families (models/transformer.py, layers/moe.py,
+     models/dimenet.py): (a) each of the six smoke configs on the card
+     against the port on the host with the same params, f32 with TF32
+     off (forward, loss, every gradient, prefill, four decode steps; the
+     MoE archs' routing and kept sets equal); (b) the five LM archs at
+     their full widths in bf16 with seeded weights, depth cut only where
+     one card forces it (llama4-scout 12 of 48 layers, kimi-k2 1 of 61):
+     prefill at B=1 (S=4,096; 2,048 for the two MoE archs), 64 greedy
+     decode steps from a cache of 32,768 positions (B=4; 8 for chatglm3
+     and gemma, 2 for llama4) with the step's memory floor and the card's
+     busy share, and prefill + decode against a forward over the same 256
+     tokens; (c) 20 AdamW steps (donated buffers) of gemma-2b at full
+     depth, B=1 x 4,096, and of llama4-scout at one layer, B=1 x 2,048;
+     (d) DimeNet's molecule and minibatch_lg shapes, 20 steps each
+     through the Trainer, one batch's forward against the host; (e) the
+     launchers' `--mode lm` and `--arch dimenet` on their default device.
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -155,6 +172,43 @@ RETRIEVAL_DIMS, RETRIEVAL_K = (10, 32, 64), 100
 # the tolerance against the uninterrupted run (a thirtieth of one AdamW
 # step at lr 3e-4: the card's index backward may add in another order)
 RESUME_FAIL_AT, RESUME_EVERY, RESUME_ATOL = 12, 5, 1e-5
+# phase 11's ANN over bst's item table: its first rows (a cut from 10^6 to
+# keep the smoke inside its limit: the 10^6 build took 248 s, 161 s of it
+# the connectivity repair)
+RECSYS_ANN_N = 500_000
+# phase 12, the LM and GNN families (PERF.md §4). Parity: the smoke configs
+# on the card against the port on the host, f32, TF32 off, within the CPU
+# tests' bounds (rtol 1e-5; atol a share of each output's or gradient
+# leaf's largest magnitude) unless stated here. Full width, bf16: the
+# layers one 80 GB card holds (the rest cut), the prefill length, decode's
+# batch from a cache of decode_32k's 32,768 positions of which the last 64
+# are generated, and the consistency check's lengths (prefill 192, then
+# 64 decode steps, against a forward over 256). Training: 20 AdamW steps
+# (steps 5-19 timed) of gemma-2b at full depth and llama4-scout at one
+# layer, B=1; DimeNet 20 steps of the molecule and minibatch_lg shapes.
+LM_ARCHS = ("qwen2_5_14b", "chatglm3_6b", "gemma_2b",
+            "llama4_scout_17b_a16e", "kimi_k2_1t_a32b")
+PARITY_OF_SCALE, PARITY_GRAD_OF_SCALE = 3e-6, 2e-5
+LM_LAYERS = dict(llama4_scout_17b_a16e=12, kimi_k2_1t_a32b=1)
+LM_PREFILL_S = dict(llama4_scout_17b_a16e=2048, kimi_k2_1t_a32b=2048)
+PREFILL_S = 4096
+LM_DECODE_B = dict(chatglm3_6b=8, gemma_2b=8, llama4_scout_17b_a16e=2)
+DECODE_B, DECODE_MAX_LEN, DECODE_STEPS = 4, 32_768, 64
+CONSIST_T, CONSIST_PREFILL = 256, 192
+# prefill + decode against a forward, dense archs in bf16: on an H100 80GB
+# HBM3 at 700 W this read 1.77e-2 (qwen2.5-14b), 1.64e-2 (chatglm3-6b) and
+# 6.99e-3 (gemma-2b) of the logits' largest magnitude, so 5e-2; f32 parity
+# is phase 12 (a)'s
+CONSIST_BOUND = 5e-2
+LM_TRAIN = (("gemma_2b", None, 4096), ("llama4_scout_17b_a16e", 1, 2048))
+GNN_MOLECULE = (30, 64, 128, 32)         # atoms, edges, molecules, d_feat
+GNN_MINIBATCH_NODES = 232_965            # minibatch_lg's graph
+# minibatch_lg's 20 steps cycle over this many batches drawn ahead: a batch
+# is 169,984 padded nodes x 602 features, about 3.3 s of the host's numpy
+# draws whatever the graph's node count, so 20 live batches would take
+# about 66 s (a cut of the stream, not of the shape)
+GNN_MINIBATCH_BATCHES = 4
+GNN_OF_SCALE = 2e-5      # card vs host forward: index_add order differs
 FUSED_STEPS = ("fused_expand", "fused_expand_sq", "fused_expand_pq",
                "fused_expand_pq4", "fused_expand_bin")
 
@@ -2425,10 +2479,10 @@ def recsys_serve(tag, cfg, params, g) -> dict:
 def recsys_retrieval(tag, cfg, params, g) -> "tuple[dict, object]":
     """Exact retrieval over the 10^6 candidates: serve_retrieval on the
     batch_dist kernel against its plain path at Q=1 and Q=SERVE_P99, each
-    path's ms; returns the rows and the Q=SERVE_P99 plain top-k ids."""
+    path's ms; returns the rows and the Q=SERVE_P99 batch."""
     from repro_torch.kernels import ops
     from repro_torch.models import recsys as R
-    rows, ids512 = {}, None
+    rows, batch512 = {}, None
     n, d = R.candidate_table(params, cfg).shape
     for Q in (1, SERVE_P99):
         batch = recsys_batch(cfg, Q, g)
@@ -2461,24 +2515,27 @@ def recsys_retrieval(tag, cfg, params, g) -> "tuple[dict, object]":
             f"equal on the {n_sep} slots apart by ATOL and the {n_apart} "
             f"apart by twice the error, of {ki.numel()}")
         if Q == SERVE_P99:
-            ids512 = (batch, pi)
-    return rows, ids512
+            batch512 = batch
+    return rows, batch512
 
 
-def recsys_ann(cfg, params, batch, exact_ids) -> dict:
+def recsys_ann(cfg, params, batch) -> dict:
     """The reference example (examples/retrieval_recsys.py) at full width:
-    a KBest graph over bst's 10^6 x 32 item table (ip, exact kNN builder,
-    M=24, knn_k=32, L=64, early termination on), searched with the
-    query vectors of a serving batch; recall@10 against the exact top-10."""
+    a KBest graph over the first RECSYS_ANN_N rows of bst's item table (d
+    = 32; ip, exact kNN builder, M=24, knn_k=32, L=64, early termination
+    on), searched with the query vectors of a serving batch; recall@10
+    against the exact top-10 of those rows."""
     import numpy as np
     import torch
+    from repro_torch.core.build import stable_topk_smallest
     from repro_torch.core.index import KBest
     from repro_torch.core.types import BuildConfig, IndexConfig, SearchConfig
     from repro_torch.data.vectors import recall_at_k
     from repro_torch.kernels import ops
     from repro_torch.models import recsys as R
-    corpus = R.candidate_table(params, cfg).contiguous()
+    corpus = R.candidate_table(params, cfg)[:RECSYS_ANN_N].contiguous()
     q = R.query_vector(params, batch, cfg).detach().contiguous()
+    exact_ids = stable_topk_smallest(-(q @ corpus.T), 10)[1]
     icfg = IndexConfig(
         dim=corpus.shape[1], metric="ip",
         build=BuildConfig(M=24, knn_k=32, builder="brute", refine_iters=1),
@@ -2498,7 +2555,7 @@ def recsys_ann(cfg, params, batch, exact_ids) -> dict:
     after = ops.launch_counts()
     ids = ids.cpu().numpy()
     assert ((ids >= 0) & (ids < corpus.shape[0])).all()
-    recall = recall_at_k(ids, exact_ids[:, :10].cpu().numpy(), 10)
+    recall = recall_at_k(ids, exact_ids.cpu().numpy(), 10)
     rec = dict(build_s=build_s, recall_at_10=recall, qps=len(q) / wall,
                queries=len(q), stages={k: round(v, 3)
                                        for k, v in idx.build_times.items()},
@@ -2545,10 +2602,9 @@ def phase_recsys():
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
         row["serve"] = recsys_serve(arch, cfg, params, g)
-        row["retrieval"], (batch, exact) = recsys_retrieval(arch, cfg,
-                                                            params, g)
+        row["retrieval"], batch = recsys_retrieval(arch, cfg, params, g)
         if arch == "bst":
-            row["ann"] = recsys_ann(cfg, params, batch, exact)
+            row["ann"] = recsys_ann(cfg, params, batch)
         del params
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
@@ -2558,6 +2614,492 @@ def phase_recsys():
     log(f"[recsys] batch_dist launches in this phase: "
         f"{rep['batch_dist_launches']}")
     assert rep["batch_dist_launches"] > 0
+
+
+# --------------------------------------------------------------------------
+# phase 12
+# --------------------------------------------------------------------------
+def reset_peak():
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else 0.0)
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def within(out, exp, of_scale, rtol=1e-5) -> "tuple[bool, float]":
+    """The CPU tests' bound, on the host: |out - exp| <= rtol |exp| +
+    of_scale * max|exp| everywhere; returns (ok, max error over max|exp|)."""
+    a = out.detach().float().cpu()
+    b = exp.detach().float().cpu()
+    assert a.shape == b.shape, (a.shape, b.shape)
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    diff = (a - b).abs()
+    ok = bool((diff <= rtol * b.abs() + of_scale * scale).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    return ok, err / (scale or 1.0)
+
+
+def weight_bytes(tree) -> int:
+    from repro_torch.train.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def check_parity(tag, pairs, fails) -> dict:
+    """Each (name, card tensor, host tensor) within PARITY_OF_SCALE (a
+    gradient, "grad:<path>", within PARITY_GRAD_OF_SCALE); failures go to
+    `fails`; returns {name: error over scale}, the gradients' largest."""
+    errs = {}
+    for name, card, host in pairs:
+        key = name.split(":")[0]
+        bound = PARITY_GRAD_OF_SCALE if key == "grad" else PARITY_OF_SCALE
+        ok, err = within(card, host, bound)
+        errs[key] = max(errs.get(key, 0.0), err)
+        if not ok:
+            fails.append(f"{tag} {name}: {err:.3e} of scale > {bound:g}")
+    return errs
+
+
+def lm_parity(name, fails) -> dict:
+    """A smoke config on the card against the port on the host, same
+    params: forward, loss_fn, every gradient, prefill, four decode steps;
+    for an MoE config also the routing and the kept sets."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.layers import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.train.tree import (leaves_with_path, path_key,
+                                        tree_map, unflatten)
+    cfg = reg.get(name).smoke_config()
+    host = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 17)).astype(np.int32))
+    outs = {}
+    for where, dev in (("host", "cpu"), ("card", DEVICE)):
+        p = tree_map(lambda t: t.to(dev), host)
+        tk = toks.to(dev)
+        o = outs[where] = {}
+        o["logits"], _ = T.forward(p, tk[:, :-1], cfg)
+        req = [t.clone().requires_grad_(True) for _, t in leaves_with_path(p)]
+        o["loss"], m = T.loss_fn(unflatten(p, req), {"tokens": tk}, cfg)
+        o["nll"], o["aux"] = m["nll"], m["aux"]
+        for (path, _), g in zip(leaves_with_path(p),
+                                torch.autograd.grad(o["loss"], req)):
+            o[f"grad:{path_key(path)}"] = g
+        o["prefill"], pc = T.prefill(p, tk[:, :9], cfg)
+        o["prefill_k"], o["prefill_v"] = pc["k"], pc["v"]
+        cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device=dev)
+        steps = []
+        for s in range(4):
+            lg, cache = T.decode_step(p, cache, tk[:, s:s + 1], cfg)
+            steps.append(lg)
+        o["decode"] = torch.cat(steps, dim=1)
+        o["cache_k"], o["cache_v"] = cache["k"], cache["v"]
+        assert int(cache["len"][0]) == 4
+        if cfg.moe is not None:
+            x = torch.from_numpy(np.random.default_rng(1).normal(
+                size=(32, cfg.d_model)).astype(np.float32)).to(dev)
+            p0 = {k: t[0] for k, t in p["layers"]["moe"].items()}
+            _, w, eidx = MOE.route(p0, x, cfg.moe)
+            dp = MOE.dispatch(w, eidx, cfg.moe.n_experts,
+                              MOE.capacity(32, cfg.moe))
+            o["route"] = (eidx.cpu(), dp.keep.cpu(), dp.slot.cpu(),
+                          dp.buf_tok.cpu())
+    h, c = outs["host"], outs["card"]
+    pairs = [(k, c[k], h[k]) for k in h if k != "route"]
+    errs = check_parity(f"[models parity {name}]", pairs, fails)
+    if cfg.moe is not None:
+        same = all(torch.equal(a, b) for a, b in zip(c["route"], h["route"]))
+        errs["kept_sets_equal"] = same
+        if not same:
+            fails.append(f"[models parity {name}] top-k, keep or slot differ")
+    log(f"[models parity {name}] card vs host, error over scale: " + ", ".join(
+        f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in errs.items()))
+    return errs
+
+
+def gnn_parity(fails) -> dict:
+    """DimeNet's smoke config on the card against the host: forward, loss
+    and every gradient, node classification on a sampled subgraph and
+    graph regression on a molecule batch."""
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.data.pipeline import gnn_minibatches, molecule_batches
+    from repro_torch.models import dimenet as D
+    from repro_torch.train.tree import (leaves_with_path, path_key,
+                                        to_tensor, tree_map, unflatten)
+    out = {}
+    for task in ("node_clf", "graph_reg"):
+        cfg = reg.get("dimenet").smoke_config()
+        if task == "graph_reg":
+            cfg = dataclasses.replace(cfg, task=task, n_out=1)
+            batch, ng = next(molecule_batches(6, 12, 4, cfg.d_feat)), 4
+        else:
+            batch, ng = next(gnn_minibatches(500, cfg.d_feat, 8, (3, 2),
+                                             cfg.n_out, triplet_cap=4)), 1
+        host = D.init_params(cfg, torch.Generator().manual_seed(0))
+        outs = {}
+        for where, dev in (("host", "cpu"), ("card", DEVICE)):
+            p = tree_map(lambda t: t.to(dev), host)
+            b = {k: to_tensor(v, dev) for k, v in batch.items()}
+            o = outs[where] = {"forward": D.forward(p, b, cfg, ng)}
+            req = [t.clone().requires_grad_(True)
+                   for _, t in leaves_with_path(p)]
+            o["loss"], _ = D.loss_fn(unflatten(p, req), b, cfg, ng)
+            for (path, _), g in zip(leaves_with_path(p),
+                                    torch.autograd.grad(o["loss"], req)):
+                o[f"grad:{path_key(path)}"] = g
+        h, c = outs["host"], outs["card"]
+        out[task] = check_parity(f"[models parity dimenet {task}]",
+                                 [(k, c[k], h[k]) for k in h], fails)
+        log(f"[models parity dimenet {task}] card vs host, error over "
+            f"scale: " + ", ".join(f"{k} {v:.2e}"
+                                   for k, v in out[task].items()))
+    return out
+
+
+def lm_full_config(name):
+    """The arch's full_config(), its depth cut to LM_LAYERS where one card
+    forces it."""
+    from repro_torch import configs as reg
+    cfg = reg.get(name).full_config()
+    if name in LM_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS[name])
+    return cfg
+
+
+def decode_floor_bytes(cfg, params, B, start, steps) -> float:
+    """What one decode step must read, on average over the run: every
+    weight (an MoE step's batched expert GEMMs read all experts) except the
+    untied embedding table, of which B rows; and the K/V of the positions
+    it attends to."""
+    emb = params["embed"]
+    w = weight_bytes(params)
+    if not cfg.tie_embeddings:
+        w -= emb.numel() * emb.element_size()
+        w += B * emb.shape[1] * emb.element_size()
+    mean_len = start + (steps + 1) / 2
+    kv = (2 * cfg.n_layers * B * mean_len * cfg.n_kv_heads * cfg.hd
+          * params["embed"].element_size())
+    return w + kv
+
+
+def lm_full(i, name, fails) -> dict:
+    """One LM arch at full width (bf16, seeded weights): prefill, 64 decode
+    steps from a 32k cache, and (dense archs) prefill + decode held to a
+    forward over the same tokens."""
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.models import transformer as T
+    cfg = lm_full_config(name)
+    full_layers = reg.get(name).full_config().n_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(200 + i)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen)
+    sync()
+    row = dict(arch=cfg.name, params=T.n_params(params),
+               weight_gb=weight_bytes(params) / 1e9, layers=cfg.n_layers,
+               layers_full=full_layers,
+               init_s=time.perf_counter() - t0)
+    if cfg.n_layers < full_layers:
+        row["reduced"] = [f"n_layers {cfg.n_layers} of {full_layers} "
+                          f"(one 80 GB card)"]
+    log(f"[models {name}] {row['params']:,} params ({row['weight_gb']:.2f} "
+        f"GB bf16), {cfg.n_layers} of {full_layers} layers, drawn in "
+        f"{row['init_s']:.1f} s")
+
+    # prefill, B=1
+    S = LM_PREFILL_S.get(name, PREFILL_S)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
+    T.prefill(params, toks[:, :64], cfg)                        # warm
+    free_card()
+    reset_peak()
+    sync()
+    t0 = time.perf_counter()
+    lg, pc = T.prefill(params, toks, cfg)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    assert lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(lg).all())
+    assert pc["k"].shape == (cfg.n_layers, 1, S, cfg.n_kv_heads, cfg.hd)
+    row["prefill"] = dict(S=S, ms=ms, tokens_per_s=S / ms * 1e3,
+                          peak_gib=peak_gib())
+    del lg, pc
+    free_card()
+    log(f"[models {name}] prefill B=1 S={S}: {ms:.1f} ms, "
+        f"{S / ms * 1e3:,.0f} tokens/s, peak {row['prefill']['peak_gib']:.2f}"
+        f" GiB")
+
+    # decode from a cache of DECODE_MAX_LEN, the last DECODE_STEPS new
+    B = LM_DECODE_B.get(name, DECODE_B)
+    start = DECODE_MAX_LEN - DECODE_STEPS
+    cache = T.init_cache(cfg, B, DECODE_MAX_LEN, device=DEVICE)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=DEVICE)
+    state = {}
+
+    def run(n):
+        cache["len"].fill_(start)
+        lg, c = T.decode_step(params, cache, tok, cfg)
+        for _ in range(n - 1):
+            lg, c = T.decode_step(params, c, torch.argmax(lg[:, -1:], dim=-1),
+                                  cfg)
+        state.update(logits=lg, len=c["len"])
+
+    run(2)                                                      # warm
+    reset_peak()
+    sync()
+    a = torch.cuda.Event(enable_timing=True) if DEVICE == "cuda" else None
+    b = torch.cuda.Event(enable_timing=True) if DEVICE == "cuda" else None
+    t0 = time.perf_counter()
+    if a is not None:
+        a.record()
+    run(DECODE_STEPS)
+    if b is not None:
+        b.record()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    ms = a.elapsed_time(b) / DECODE_STEPS if a is not None else wall
+    assert int(state["len"][0]) == DECODE_MAX_LEN
+    assert bool(torch.isfinite(state["logits"]).all())
+    peak = peak_gib()
+    dev_ms, busy_wall = device_busy(lambda: run(8))
+    floor = decode_floor_bytes(cfg, params, B, start, DECODE_STEPS)
+    row["decode"] = dict(
+        B=B, context=DECODE_MAX_LEN, steps=DECODE_STEPS, ms_per_token=ms,
+        tokens_per_s=B / ms * 1e3, peak_gib=peak,
+        busy_share=dev_ms / busy_wall if busy_wall else 0.0,
+        floor_gb=floor / 1e9, floor_ms=floor / PEAK_BYTES * 1e3)
+    d = row["decode"]
+    log(f"[models {name}] decode B={B} from {start:,} of {DECODE_MAX_LEN:,}"
+        f" positions, {DECODE_STEPS} steps: {ms:.2f} ms/token ({wall:.2f} "
+        f"on the host clock), {d['tokens_per_s']:,.0f} tokens/s; memory "
+        f"floor {d['floor_gb']:.2f} GB a step = {d['floor_ms']:.2f} ms "
+        f"({d['floor_ms'] / ms:.1%} of the step); peak {peak:.2f} GiB; "
+        f"busy {d['busy_share']:.1%} of 8 steps under the profiler")
+    del cache, state
+    free_card()
+
+    # prefill + decode against a forward over the same tokens
+    toks = torch.randint(0, cfg.vocab, (1, CONSIST_T), generator=gen,
+                         device=DEVICE)
+    with torch.no_grad():
+        full, _ = T.forward(params, toks, cfg)
+    lg, pc = T.prefill(params, toks[:, :CONSIST_PREFILL], cfg)
+    cache = T.init_cache(cfg, 1, CONSIST_T, device=DEVICE)
+    cache["k"][:, :, :CONSIST_PREFILL] = pc["k"]
+    cache["v"][:, :, :CONSIST_PREFILL] = pc["v"]
+    cache["len"].fill_(CONSIST_PREFILL)
+    steps = [lg]
+    for s in range(CONSIST_PREFILL, CONSIST_T):
+        lg, cache = T.decode_step(params, cache, toks[:, s:s + 1], cfg)
+        steps.append(lg)
+    got = torch.cat(steps, dim=1)
+    exp = full[:, CONSIST_PREFILL - 1:]
+    scale = float(exp.abs().max())
+    err = float((got - exp).abs().max()) / scale
+    row["consistency"] = dict(T=CONSIST_T, prefill=CONSIST_PREFILL,
+                              err_of_scale=err, logit_scale=scale,
+                              asserted=cfg.moe is None)
+    log(f"[models {name}] prefill {CONSIST_PREFILL} + "
+        f"{CONSIST_T - CONSIST_PREFILL} decode steps against a forward "
+        f"over {CONSIST_T}: max error {err:.3e} of the logits' scale "
+        f"{scale:.3f}" + ("" if cfg.moe is None else
+                          " (MoE: reported only, capacity differs)"))
+    if cfg.moe is None and not err <= CONSIST_BOUND:
+        fails.append(f"[models {name}] consistency {err:.3e} > "
+                     f"{CONSIST_BOUND}")
+    del params, cache, full, pc
+    free_card()
+    return row
+
+
+def lm_train(name, layers, S) -> dict:
+    """TRAIN_STEPS AdamW steps of the Trainer's step (donated buffers: the
+    params and moments update in place) at B=1 x S on lm_batches."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptConfig, opt_init
+    from repro_torch.train.tree import to_tensor
+    cfg = reg.get(name).full_config()
+    full_layers = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(7))
+    opt_cfg = OptConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(lambda p, b: T.loss_fn(p, b, cfg), opt_cfg,
+                          TrainerConfig(ckpt_dir=tmp), device=DEVICE,
+                          donate=True)
+        opt = opt_init(params, opt_cfg)
+        data = lm_batches(cfg.vocab, 1, S)
+        reset_peak()
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            batch = {k: to_tensor(v, DEVICE) for k, v in next(data).items()}
+            t0 = time.perf_counter()
+            params, opt, m = trainer.step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))        # the step's host sync
+            secs.append(time.perf_counter() - t0)
+    assert all(np.isfinite(losses)), (name, losses)
+    step_ms = 1e3 * float(np.median(secs[TRAIN_TIMED_FROM:]))
+    rec = dict(arch=cfg.name, params=T.n_params(params), layers=cfg.n_layers,
+               layers_full=full_layers, B=1, S=S, steps=TRAIN_STEPS,
+               step_ms=step_ms, tokens_per_s=S / step_ms * 1e3,
+               peak_gib=peak_gib(), first_loss=losses[0],
+               last_loss=losses[-1], losses=losses)
+    if cfg.n_layers < full_layers:
+        rec["reduced"] = [f"n_layers {cfg.n_layers} of {full_layers} (one "
+                          f"80 GB card: weights, grads and AdamW moments)"]
+    log(f"[models train {name}] {rec['params']:,} params, {cfg.n_layers} "
+        f"of {full_layers} layers, B=1 x S={S}: step {step_ms:.1f} ms "
+        f"(median of steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS - 1}), "
+        f"{rec['tokens_per_s']:,.0f} tokens/s, peak {rec['peak_gib']:.2f} "
+        f"GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    del params, opt, trainer, m
+    free_card()
+    return rec
+
+
+def gnn_run(tag, cfg, stream, n_graphs, fails) -> dict:
+    """One batch's forward on the card against the host (same params),
+    then TRAIN_STEPS AdamW steps through the Trainer on the stream."""
+    import itertools
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.models import dimenet as D
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.tree import to_tensor, tree_map
+    first = next(stream)
+    params = D.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(9))
+    host = tree_map(lambda t: t.cpu(), params)
+    batch = {k: to_tensor(v, DEVICE) for k, v in first.items()}
+    with torch.no_grad():
+        card_out = D.forward(params, batch, cfg, n_graphs)
+        host_out = D.forward(host, {k: to_tensor(v, "cpu")
+                                    for k, v in first.items()}, cfg, n_graphs)
+    ok, err = within(card_out, host_out, GNN_OF_SCALE)
+    if not ok:
+        fails.append(f"[models dimenet {tag}] forward {err:.3e} of scale > "
+                     f"{GNN_OF_SCALE:g}")
+    reset_peak()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(lambda p, b: D.loss_fn(p, b, cfg, n_graphs),
+                          OptConfig(), TrainerConfig(ckpt_dir=tmp,
+                                                     log_every=1),
+                          device=DEVICE)
+        t0 = time.perf_counter()
+        out = trainer.fit(params, Prefetcher(itertools.chain([first],
+                                                             stream)),
+                          n_steps=TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    dev_ms = cuda_ms(lambda: trainer.step_fn(out["params"], out["opt"],
+                                             batch), reps=5, warmup=1)
+    n_edges = int((first["edge_src"] >= 0).sum())
+    n_trip = int((first["trip_kj"] >= 0).sum())
+    rec = dict(nodes=int(first["feats"].shape[0]), edges=n_edges,
+               triplets=n_trip, params=D.n_params(params),
+               forward_err_of_scale=err,
+               step_ms=1e3 * float(np.median(
+                   [h["sec"] for h in out["history"][TRAIN_TIMED_FROM:]])),
+               step_device_ms=dev_ms, peak_gib=peak_gib(), wall_s=wall,
+               first_loss=losses[0], last_loss=losses[-1])
+    log(f"[models dimenet {tag}] {rec['nodes']:,} nodes, {n_edges:,} edges, "
+        f"{n_trip:,} triplets a batch; forward card vs host {err:.2e} of "
+        f"scale; step "
+        f"{rec['step_ms']:.1f} ms with the data wait, {dev_ms:.2f} ms on a "
+        f"batch on the card; peak {rec['peak_gib']:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.1f} s for "
+        f"{TRAIN_STEPS} steps")
+    del out, trainer, params
+    free_card()
+    return rec
+
+
+def launchers_on_card() -> dict:
+    """The launchers' LM and GNN modes with their default device (the
+    card): `serve --mode lm` and `train --arch dimenet --smoke`."""
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    ms = serve_launch.serve_lm("gemma-2b")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = train_launch.main(["--arch", "dimenet", "--smoke", "--steps",
+                                "3", "--ckpt", tmp])
+    assert rc == 0
+    return dict(serve_lm_smoke_ms_per_token=ms)
+
+
+def phase_models():
+    """The LM and GNN families: (a) each smoke config on the card against
+    the host, (b) the five LM archs at full width (prefill, decode from a
+    32k cache, prefill + decode against a forward), (c) AdamW training of
+    gemma-2b and llama4-scout, (d) DimeNet's molecule and minibatch_lg
+    shapes trained, (e) the launchers' LM and GNN modes on the card."""
+    import itertools
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.data.pipeline import gnn_minibatches, molecule_batches
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep = REPORT["models"] = {}
+    fails: list = []
+    t0 = time.perf_counter()
+    rep["parity"] = {name: lm_parity(name, fails) for name in LM_ARCHS}
+    rep["parity"]["dimenet"] = gnn_parity(fails)
+    rep["parity_s"] = time.perf_counter() - t0
+    free_card()
+    rep["lm"] = {name: lm_full(i, name, fails)
+                 for i, name in enumerate(LM_ARCHS)}
+    rep["train"] = {name: lm_train(name, layers, S)
+                    for name, layers, S in LM_TRAIN}
+    mod = reg.get("dimenet")
+    atoms, edges, mols, d_feat = GNN_MOLECULE
+    mcfg = mod.full_config("molecule")
+    sp = mod.SHAPE_PARAMS["minibatch_lg"]
+    gcfg = mod.full_config("minibatch_lg")
+    rep["gnn"] = {"molecule": gnn_run("molecule", mcfg, molecule_batches(
+        atoms, edges, mols, d_feat), mols, fails)}
+    t0 = time.perf_counter()
+    drawn = list(itertools.islice(gnn_minibatches(
+        GNN_MINIBATCH_NODES, gcfg.d_feat, sp["batch_nodes"], sp["fanouts"],
+        gcfg.n_out), GNN_MINIBATCH_BATCHES))
+    synth_s = time.perf_counter() - t0
+    log(f"[models dimenet minibatch_lg] {GNN_MINIBATCH_BATCHES} batches over "
+        f"a {GNN_MINIBATCH_NODES:,}-node graph drawn in {synth_s:.1f} s")
+    rec = rep["gnn"]["minibatch_lg"] = gnn_run(
+        "minibatch_lg", gcfg, itertools.cycle(drawn), 1, fails)
+    rec["synth_s"] = synth_s
+    rec["reduced"] = [f"{TRAIN_STEPS} steps cycle over "
+                      f"{GNN_MINIBATCH_BATCHES} batches drawn ahead"]
+    if GNN_MINIBATCH_NODES < sp["n_nodes"]:
+        rec["reduced"].append(
+            f"graph nodes {GNN_MINIBATCH_NODES} of {sp['n_nodes']}")
+    del drawn
+    rep["launchers"] = launchers_on_card()
+    if fails:
+        raise AssertionError("phase models: " + "; ".join(fails))
 
 
 def main() -> int:
@@ -2599,6 +3141,7 @@ def main() -> int:
     del idx
     torch.cuda.empty_cache()
     timed("recsys", phase_recsys)
+    timed("models", phase_models)
     path_counts = dict(main=counts, quant=qcounts, pq4_bin=bcounts,
                        ivf=icounts)
     kernels = []
@@ -2620,7 +3163,11 @@ def main() -> int:
         f" {REPORT['ivf']['ivf_bin']['row']['recall']:.4f}), graph none W=4 "
         f"recall@10 {none_rec[(4, 'kernel')]:.4f}, 2-shard graph W=4 "
         f"recall@10 {REPORT['sharded']['graph']['rows'][0]['recall']:.4f}, "
-        f"engine drain QPS {REPORT['serving']['graph']['qps']:.0f}")
+        f"engine drain QPS {REPORT['serving']['graph']['qps']:.0f}, "
+        f"qwen2.5-14b decode "
+        f"{REPORT['models']['lm']['qwen2_5_14b']['decode']['ms_per_token']:.2f}"
+        f" ms/token at B={LM_DECODE_B.get('qwen2_5_14b', DECODE_B)} from a "
+        f"{DECODE_MAX_LEN:,}-position cache")
     REPORT["total_s"] = time.perf_counter() - t_all
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

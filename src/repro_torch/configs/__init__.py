@@ -8,9 +8,10 @@ in kbest.py). Each module exposes
     full_config()   -> model config (exact assigned hyperparameters)
     smoke_config()  -> reduced same-family config for CPU smoke tests
 
-Select with --arch <id> in the launchers. The port has the RecSys family;
-`get()` of an LM or GNN arch raises `NotPortedError`, which names the
-ROADMAP item that ports it.
+Select with --arch <id> in the launchers. The port has every family
+(LM, GNN, RecSys). `NotPortedError` marks what is mesh-bound and has no
+counterpart on one card (the LM's `MoEConfig.use_shardmap` dispatch); it
+names the ROADMAP item that would port it.
 """
 from __future__ import annotations
 
@@ -44,24 +45,12 @@ LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
 
-# archs whose model the port does not have yet -> the ROADMAP item for it
-_NOT_PORTED = {
-    **{a: ("5b", "the LM family: layers/moe.py, models/transformer.py")
-       for a in ARCHS[:5]},
-    "dimenet": ("5c", "the GNN family: models/dimenet.py"),
-}
-
 
 class NotPortedError(NotImplementedError):
-    """The arch's model family is not in the port yet."""
+    """A mesh-bound path of the reference that the port does not have."""
 
 
 def get(arch: str):
     name = _ALIAS.get(arch, arch.replace("-", "_").replace(".", "_"))
     assert name in ARCHS, f"unknown arch {arch}; options: {ARCHS}"
-    if name in _NOT_PORTED:
-        item, what = _NOT_PORTED[name]
-        raise NotPortedError(
-            f"arch {name} is not ported to repro_torch yet: {what} "
-            f"(ROADMAP queue 1 item {item})")
     return importlib.import_module(f"repro_torch.configs.{name}")

@@ -1,5 +1,6 @@
-"""Serving launcher: the KBest ANN service over a synthetic corpus, the
-counterpart of the JAX package's `repro/launch/serve.py --mode ann`.
+"""Serving launcher: the KBest ANN service over a synthetic corpus, or
+greedy decode of a language model through its KV cache; the counterpart of
+the JAX package's `repro/launch/serve.py`.
 
     # graph and IVF engines side by side, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ann --n 4000
@@ -12,11 +13,13 @@ counterpart of the JAX package's `repro/launch/serve.py --mode ann`.
     # beam-parallel traversal for the graph engine (DESIGN.md §2)
     PYTHONPATH=src python -m repro_torch.launch.serve --mode ann --beam 4
 
+    # 16 greedy decode steps of a smoke LM through its KV cache (the
+    # decode_32k path)
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch gemma-2b
+
     # on the host instead of the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
-
-The reference's `--mode lm` (a decode step of a language model) needs the
-LM family, which the port does not have yet (ROADMAP queue 1 item 5b).
 """
 from __future__ import annotations
 
@@ -88,9 +91,42 @@ def serve_ann(n: int, shards: int = 1, beam: int = 1, device: str = "cuda"):
     return report
 
 
+def serve_lm(arch: str, device: str = "cuda") -> float:
+    """The arch's smoke config with seeded weights: a cache of 64 slots for
+    2 sequences, one warm-up step, then 16 greedy decode steps; prints and
+    returns the mean ms a token."""
+    import torch
+
+    from repro_torch import configs as reg
+    from repro_torch.models import transformer as T
+    cfg = reg.get(arch).smoke_config()
+    p = T.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    cache = T.init_cache(cfg, 2, 64, dtype=torch.float32, device=device)
+    toks = torch.randint(0, cfg.vocab, (2, 1), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(1))
+    logits, cache = T.decode_step(p, cache, toks, cfg)      # warm-up
+    on_card = cache["len"].is_cuda
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        nxt = torch.argmax(logits[:, -1:], dim=-1)
+        logits, cache = T.decode_step(p, cache, nxt, cfg)
+    if on_card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 16 * 1e3
+    where = torch.cuda.get_device_name(0) if on_card else "host CPU"
+    print(f"{arch}: {ms:.2f} ms/token (smoke config, {where}), "
+          f"cache len={int(cache['len'][0])}")
+    return ms
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("ann",), default="ann")
+    ap.add_argument("--mode", choices=("ann", "lm"), default="ann")
+    ap.add_argument("--arch", default="gemma-2b",
+                    help="the LM arch of --mode lm")
     ap.add_argument("--n", type=int, default=4000)
     ap.add_argument("--beam", type=int, default=1,
                     help="graph-engine beam width W (DESIGN.md §2)")
@@ -99,7 +135,11 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args()
-    serve_ann(args.n, shards=args.shards, beam=args.beam, device=args.device)
+    if args.mode == "ann":
+        serve_ann(args.n, shards=args.shards, beam=args.beam,
+                  device=args.device)
+    else:
+        serve_lm(args.arch, device=args.device)
 
 
 if __name__ == "__main__":

@@ -6,14 +6,14 @@ package's `repro/launch/train.py`.
         --steps 20 --batch 65536
 
     # the reduced config, on the host
-    PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm \
-        --smoke --steps 10 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --smoke --steps 10 --batch 4 --seq 32 --device cpu
 
-The port trains the four RecSys archs (fm, deepfm, bst, bert4rec); an LM
-or GNN arch exits with the error that names the ROADMAP item porting it.
-`--seq` is the LM stream's sequence length (the RecSys streams take their
-config's). A checkpoint directory that holds steps resumes from the
-newest.
+Every arch trains: LM archs on the token stream (`--batch` x `--seq`), the
+GNN arch (dimenet, at `full_config("full_graph_sm")` without `--smoke`)
+on sampled 2-hop subgraphs of `--batch` seed nodes, RecSys archs on their
+streams (at their config's sequence length). A checkpoint directory that
+holds steps resumes from the newest.
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ import tempfile
 import torch
 
 from repro_torch import configs as reg
-from repro_torch.data.pipeline import Prefetcher, ctr_batches, seq_batches
+from repro_torch.data.pipeline import (Prefetcher, ctr_batches,
+                                       gnn_minibatches, lm_batches,
+                                       seq_batches)
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.train.optimizer import OptConfig
 
@@ -45,22 +47,29 @@ def main(argv=None) -> int:
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    try:
-        mod = reg.get(args.arch)
-    except reg.NotPortedError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    cfg = mod.smoke_config() if args.smoke else mod.full_config()
+    mod = reg.get(args.arch)
+    cfg = mod.smoke_config() if args.smoke else (
+        mod.full_config("full_graph_sm") if mod.FAMILY == "gnn"
+        else mod.full_config())
 
-    from repro_torch.models import recsys as M
     gen = torch.Generator(device=args.device).manual_seed(0)
-    params = M.init_params(cfg, gen)
-    if cfg.kind in ("fm", "deepfm"):
-        data = Prefetcher(ctr_batches(cfg.n_sparse, cfg.vocab_per_field,
-                                      args.batch))
+    if mod.FAMILY == "lm":
+        from repro_torch.models import transformer as M
+        data = lm_batches(cfg.vocab, args.batch, args.seq)
+    elif mod.FAMILY == "recsys":
+        from repro_torch.models import recsys as M
+        if cfg.kind in ("fm", "deepfm"):
+            data = ctr_batches(cfg.n_sparse, cfg.vocab_per_field, args.batch)
+        else:
+            data = seq_batches(cfg.kind, cfg.n_items, args.batch,
+                               cfg.seq_len)
     else:
-        data = Prefetcher(seq_batches(cfg.kind, cfg.n_items, args.batch,
-                                      cfg.seq_len))
+        from repro_torch.models import dimenet as M
+        data = gnn_minibatches(n_nodes=2000, d_feat=cfg.d_feat,
+                               batch_nodes=args.batch, fanouts=(5, 3),
+                               n_classes=cfg.n_out)
+    params = M.init_params(cfg, gen)
+    data = Prefetcher(data)
 
     def lfn(p, b):
         return M.loss_fn(p, b, cfg)

@@ -148,9 +148,10 @@ def dense_init(generator: torch.Generator, shape,
                scale: Optional[float] = None,
                dtype=torch.float32) -> torch.Tensor:
     """Normal draw times `scale` (default 1/sqrt(fan_in), fan_in the first
-    dim of a >= 2-D shape), on the generator's device."""
+    dim of a >= 2-D shape), on the generator's device, drawn in `dtype`
+    (a bf16 leaf of many GB needs no f32 transient of its size)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     x = torch.randn(tuple(shape), generator=generator,
-                    device=generator.device)
-    return (x * scale).to(dtype)
+                    device=generator.device, dtype=dtype)
+    return x.mul_(scale)

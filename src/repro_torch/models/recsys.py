@@ -25,14 +25,14 @@ retrieval_cand 1 x 1e6.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
-from torch import nn
 
 from repro_torch.core.build import stable_topk_smallest
 from repro_torch.layers import common as L
-from repro_torch.train.tree import leaves_with_path, to_tensor, tree_map
+from repro_torch.layers import params as P
+from repro_torch.layers.params import Leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,46 +62,36 @@ class RecsysConfig:
 
 
 # ---------------------------------------------------------------- params ---
-@dataclasses.dataclass(frozen=True)
-class _Leaf:
-    """A parameter's shape, dtype and draw: zeros, or a normal times
-    `scale` (None: 1/sqrt(fan_in))."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-    scale: Optional[float] = None
-    zeros: bool = False
-
-
 def param_spec(cfg: RecsysConfig) -> dict:
-    """The parameter tree of `cfg`, as `_Leaf` specs (the reference's
+    """The parameter tree of `cfg`, as `Leaf` specs (the reference's
     `init_params` structure)."""
     dt = cfg.param_dtype
 
     def mlp(d_in):
         dims = (d_in,) + tuple(cfg.mlp_dims) + (1,)
-        return [{"w": _Leaf((dims[i], dims[i + 1]), dt),
-                 "b": _Leaf((dims[i + 1],), dt, zeros=True)}
+        return [{"w": Leaf((dims[i], dims[i + 1]), dt),
+                 "b": Leaf((dims[i + 1],), dt, zeros=True)}
                 for i in range(len(dims) - 1)]
 
     if cfg.kind in ("deepfm", "fm"):
         F, V, D = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
-        p = {"tables": _Leaf((F, V, D), dt, 0.01),
-             "linear": _Leaf((F, V), dt, 0.01),     # per-field scalar weights
-             "bias": _Leaf((), torch.float32, zeros=True)}
+        p = {"tables": Leaf((F, V, D), dt, 0.01),
+             "linear": Leaf((F, V), dt, 0.01),     # per-field scalar weights
+             "bias": Leaf((), torch.float32, zeros=True)}
         if cfg.kind == "deepfm":
             p["mlp"] = mlp(F * D)
         return p
     Dm = cfg.d_model
     if cfg.kind == "bst":
-        return {"item_emb": _Leaf((cfg.n_items, Dm), dt, 0.02),
-                "pos_emb": _Leaf((cfg.seq_len + 1, Dm), dt, 0.02),
+        return {"item_emb": Leaf((cfg.n_items, Dm), dt, 0.02),
+                "pos_emb": Leaf((cfg.seq_len + 1, Dm), dt, 0.02),
                 "blocks": _block_spec(cfg, Dm),
                 "mlp": mlp((cfg.seq_len + 1) * Dm)}
     if cfg.kind == "bert4rec":
-        return {"item_emb": _Leaf((cfg.n_items, Dm), dt, 0.02),
-                "pos_emb": _Leaf((cfg.seq_len, Dm), dt, 0.02),
+        return {"item_emb": Leaf((cfg.n_items, Dm), dt, 0.02),
+                "pos_emb": Leaf((cfg.seq_len, Dm), dt, 0.02),
                 "blocks": _block_spec(cfg, Dm),
-                "ln_f": _Leaf((Dm,), torch.float32, zeros=True)}
+                "ln_f": Leaf((Dm,), torch.float32, zeros=True)}
     raise ValueError(cfg.kind)
 
 
@@ -109,91 +99,37 @@ def _block_spec(cfg: RecsysConfig, Dm: int) -> dict:
     """Encoder blocks stacked on a leading (n_blocks,) axis. Each weight is
     drawn at its own fan-in, as the reference draws each block's."""
     nb, dt = cfg.n_blocks, cfg.param_dtype
-    spec = {"ln1": _Leaf((nb, Dm), torch.float32, zeros=True),
-            "ln2": _Leaf((nb, Dm), torch.float32, zeros=True)}
+    spec = {"ln1": Leaf((nb, Dm), torch.float32, zeros=True),
+            "ln2": Leaf((nb, Dm), torch.float32, zeros=True)}
     for name, shape in (("wq", (Dm, Dm)), ("wk", (Dm, Dm)), ("wv", (Dm, Dm)),
                         ("wo", (Dm, Dm)), ("w_in", (Dm, 4 * Dm)),
                         ("w_out", (4 * Dm, Dm))):
-        spec[name] = _Leaf((nb,) + shape, dt, 1.0 / shape[0] ** 0.5)
+        spec[name] = Leaf((nb,) + shape, dt, 1.0 / shape[0] ** 0.5)
     return spec
-
-
-def _is_spec(x) -> bool:
-    return isinstance(x, _Leaf)
 
 
 def init_params(cfg: RecsysConfig, generator: torch.Generator) -> dict:
     """Seeded parameters on the generator's device."""
-    def draw(s: _Leaf):
-        if s.zeros:
-            return torch.zeros(s.shape, dtype=s.dtype, device=generator.device)
-        return L.dense_init(generator, s.shape, scale=s.scale, dtype=s.dtype)
-    return tree_map(draw, param_spec(cfg), is_leaf=_is_spec)
+    return P.init_from_spec(param_spec(cfg), generator)
 
 
 def params_from_numpy(cfg: RecsysConfig, tree, device=None) -> dict:
     """The reference's params (numpy arrays, the same nesting) as the
     port's, on `device` (None: the card). Shapes and dtypes are held to
     `cfg`'s."""
-    dev = torch.device("cuda" if device is None else device)
-
-    def conv(s: _Leaf, a):
-        t = to_tensor(a, dev)
-        if tuple(t.shape) != s.shape or t.dtype != s.dtype:
-            raise ValueError(f"param {tuple(t.shape)} {t.dtype}, expected "
-                             f"{s.shape} {s.dtype}")
-        return t
-    return tree_map(conv, param_spec(cfg), tree, is_leaf=_is_spec)
+    return P.from_numpy(param_spec(cfg), tree, device)
 
 
-class _Node(nn.Module):
-    """One dict level of a parameter tree as a module."""
-
-
-def _module_of(tree) -> nn.Module:
-    if isinstance(tree, list):
-        return nn.ModuleList([_module_of(t) for t in tree])
-    node = _Node()
-    for k, v in sorted(tree.items()):
-        if isinstance(v, torch.Tensor):
-            node.register_parameter(k, nn.Parameter(v))
-        else:
-            node.add_module(k, _module_of(v))
-    return node
-
-
-def _tree_of(module: nn.Module):
-    if isinstance(module, nn.ModuleList):
-        return [_tree_of(m) for m in module]
-    out = dict(module.named_parameters(recurse=False))
-    out.update({k: _tree_of(m) for k, m in module.named_children()})
-    return out
-
-
-class RecsysModel(nn.Module):
-    """The parameter tree as an `nn.Module`: `named_parameters()` with "."
-    read as "/" are the reference's tree paths (`mlp.0.w` is `mlp/0/w`).
-    The parameters share storage with the tree it was made from."""
-
-    def __init__(self, cfg: RecsysConfig, params: dict):
-        super().__init__()
-        self.cfg = cfg
-        self.tree = _module_of(params)
-
-    def params(self) -> dict:
-        return _tree_of(self.tree)
-
-    def named_paths(self):
-        """(reference path, parameter) pairs."""
-        return [(n[len("tree."):].replace(".", "/"), p)
-                for n, p in self.named_parameters()]
+class RecsysModel(P.TreeModule):
+    """The parameter tree as an `nn.Module` (`layers.params.TreeModule`):
+    `named_paths()` are the reference's tree paths (`mlp.0.w` is
+    `mlp/0/w`), sharing storage with the tree it was made from."""
 
     def forward(self, batch: dict) -> torch.Tensor:
         return forward(self.params(), batch, self.cfg)
 
 
-def n_params(params: dict) -> int:
-    return sum(t.numel() for _, t in leaves_with_path(params))
+n_params = P.n_params
 
 
 # -------------------------------------------------------------- encoders ---

@@ -12,8 +12,11 @@ metrics) over a parameter tree, an optimizer config, a device and a data
 iterator of numpy batches, which it moves to the device. A step is one
 autograd pass and one `opt_update`; its one host sync reads the loss (the
 reference's `block_until_ready`), which the straggler clock needs. The
-reference's `donate` and sharding arguments have no meaning on one card;
-`device` takes their place.
+reference's sharding arguments have no meaning on one card; `device` takes
+their place. `donate=True` is the reference's buffer donation (its
+default): AdamW then updates the parameters and moments in place, in
+slices, so a step holds one copy of the state (the params given to `fit`
+are consumed); the default keeps them untouched.
 """
 from __future__ import annotations
 
@@ -46,8 +49,9 @@ class SimulatedFailure(RuntimeError):
 
 class Trainer:
     def __init__(self, loss_fn: Callable, opt_cfg: OptConfig,
-                 cfg: TrainerConfig, device=None):
+                 cfg: TrainerConfig, device=None, donate: bool = False):
         self.loss_fn = loss_fn
+        self.donate = donate
         self.opt_cfg = opt_cfg
         self.cfg = cfg
         self.device = torch.device("cuda" if device is None else device)
@@ -65,7 +69,8 @@ class Trainer:
         with torch.no_grad():
             new_params, new_state, gnorm = opt_update(
                 unflatten(params, grads), opt_state,
-                unflatten(params, [p.detach() for p in req]), self.opt_cfg)
+                unflatten(params, [p.detach() for p in req]), self.opt_cfg,
+                donate=self.donate)
         metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm)
         return new_params, new_state, metrics
 

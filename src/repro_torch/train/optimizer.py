@@ -6,8 +6,10 @@ tree keyed like the reference's: AdamW `{"m": tree, "v": tree, "count"}`,
 Adafactor `{"v": tree of {"vr", "vc"} (>= 2-D leaves) or {"v"}, "count"}`.
 Checkpoints of either package restore into the other. Adafactor's
 factored second moment collapses an (E, d, f) leaf's moments from E*d*f
-to E*(d + f) floats. Updates are functional: new tensors, the inputs
-untouched. Call them under `torch.no_grad()` (the trainer does).
+to E*(d + f) floats. Updates are functional (new tensors, the inputs
+untouched) unless AdamW is asked to donate its inputs, as the reference's
+Trainer donates its buffers: then it updates them in place. Call them
+under `torch.no_grad()` (the trainer does).
 """
 from __future__ import annotations
 
@@ -49,28 +51,57 @@ def _global_norm(tree) -> torch.Tensor:
                           for g in leaves(tree)))
 
 
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
 def _clip(grads, max_norm: float):
     gn = _global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    scale = _clip_scale(gn, max_norm)
     return tree_map(lambda g: g * scale, grads), gn
 
 
-def adamw_update(grads, state, params, cfg: OptConfig):
-    grads = tree_map(lambda g: g.float(), grads)
-    grads, gnorm = _clip(grads, cfg.grad_clip)
+# elements a donated update takes at a time: its f32 temporaries stay a
+# few hundred MB however large the leaf (llama4's 202,048 x 5,120 embedding
+# would need 4 GB a temporary)
+_DONATE_CHUNK = 1 << 26
+
+
+def adamw_update(grads, state, params, cfg: OptConfig, donate: bool = False):
+    """donate: write the new params and moments into `params` and
+    `state`'s tensors (the reference's buffer donation), a slice of
+    `_DONATE_CHUNK` elements at a time, so the step needs no second copy
+    of the state. The values are the same either way (every op is
+    elementwise)."""
+    gnorm = _global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.grad_clip)
     c = state["count"] + 1
     b1, b2 = cfg.b1, cfg.b2
-    m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["m"], grads)
-    v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["v"], grads)
     bc1 = 1 - b1 ** c.float()
     bc2 = 1 - b2 ** c.float()
 
-    def upd(p, m, v):
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    def new(p, g, m, v):
+        g = g.float() * scale
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * g * g
+        step = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
         step = step + cfg.weight_decay * p.float()
-        return (p.float() - cfg.lr * step).to(p.dtype)
+        return (p.float() - cfg.lr * step).to(p.dtype), m2, v2
 
-    new_params = tree_map(upd, params, m, v)
+    def upd(p, g, m, v):
+        if not donate:
+            return new(p, g, m, v)
+        flat = [t.view(-1).split(_DONATE_CHUNK)
+                for t in (p, g.reshape(-1), m, v)]
+        for pc, gc, mc, vc in zip(*flat):
+            for dst, src in zip((pc, mc, vc), new(pc, gc, mc, vc)):
+                dst.copy_(src)
+        return p, m, v
+
+    triples = tree_map(upd, params, grads, state["m"], state["v"])
+    is_triple = lambda x: isinstance(x, tuple)  # noqa: E731
+    new_params, m, v = (tree_map(lambda t: t[i], triples, is_leaf=is_triple)
+                        for i in range(3))
     return new_params, {"m": m, "v": v, "count": c}, gnorm
 
 
@@ -132,8 +163,9 @@ def opt_init(params, cfg: OptConfig):
     return adafactor_init(params, cfg)
 
 
-def opt_update(grads, state, params, cfg: OptConfig):
-    """(new params, new state, the global grad norm before clipping)."""
+def opt_update(grads, state, params, cfg: OptConfig, donate: bool = False):
+    """(new params, new state, the global grad norm before clipping).
+    donate (AdamW): update `params` and `state` in place."""
     if cfg.kind == "adamw":
-        return adamw_update(grads, state, params, cfg)
+        return adamw_update(grads, state, params, cfg, donate)
     return adafactor_update(grads, state, params, cfg)

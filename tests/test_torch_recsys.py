@@ -271,9 +271,15 @@ def test_registry_equals_reference():
                                dtype="bfloat16").param_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch_name", ["gemma-2b", "qwen2.5-14b", "dimenet"])
+@pytest.mark.parametrize("arch_name", ["gemma-2b", "qwen2.5-14b", "dimenet",
+                                       "chatglm3-6b", "kimi-k2-1t-a32b",
+                                       "llama4-scout-17b-a16e"])
 def test_unported_families_name_their_roadmap_item(arch_name):
-    with pytest.raises(treg.NotPortedError, match="ROADMAP queue 1 item 5"):
-        treg.get(arch_name)
+    """The LM and GNN archs, once unported (`get()` raised the error naming
+    their ROADMAP item), now resolve to the port's own config modules."""
+    mod = treg.get(arch_name)
+    name = arch_name.replace("-", "_").replace(".", "_")
+    assert mod.__name__ == f"repro_torch.configs.{name}"
+    assert mod.FAMILY == jreg.get(arch_name).FAMILY
     with pytest.raises(AssertionError):
         treg.get("no_such_arch")

@@ -480,8 +480,12 @@ def test_launcher_serves_both_families_on_two_shards(capsys):
     assert "host CPU" in capsys.readouterr().out
 
 
-def test_launcher_offers_no_lm_mode(monkeypatch):
+def test_launcher_offers_no_lm_mode(monkeypatch, capsys):
+    """`--mode lm`, once refused, decodes a smoke LM through its cache."""
     from repro_torch.launch import serve as launcher
-    monkeypatch.setattr("sys.argv", ["serve", "--mode", "lm"])
-    with pytest.raises(SystemExit):
-        launcher.main()
+    monkeypatch.setattr("sys.argv", ["serve", "--mode", "lm", "--arch",
+                                     "chatglm3-6b", "--device", "cpu"])
+    launcher.main()
+    out = capsys.readouterr().out
+    assert "ms/token (smoke config, host CPU)" in out
+    assert out.startswith("chatglm3-6b: ") and "cache len=17" in out

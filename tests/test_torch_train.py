@@ -328,6 +328,40 @@ def test_resume_after_failure_equals_uninterrupted(tmp_path, deepfm):
     _assert_trees(moved["params"], full["params"], exact=True)
 
 
+def test_donated_steps_equal_functional_steps(tmp_path, deepfm, monkeypatch):
+    """donate=True (the reference's buffer donation) updates the params
+    and AdamW moments in place, in slices (here of 1,000 elements, so the
+    embedding tables take several), and gives the functional path's
+    values bit for bit; the params given to `fit` are consumed."""
+    cfg, _, _, tp = deepfm
+    monkeypatch.setattr(TO, "_DONATE_CHUNK", 1000)
+    assert max(t.numel() for t in leaves(tp)) > 3 * 1000
+    outs = {}
+    for donate in (False, True):
+        mine = tree_map(torch.clone, tp)
+        tr = TLOOP.Trainer(_port_loss(cfg), TO.OptConfig(lr=1e-2),
+                           TLOOP.TrainerConfig(ckpt_dir=str(tmp_path / str(
+                               donate)), ckpt_every=3, log_every=1),
+                           device=CPU, donate=donate)
+        out = tr.fit(mine, TP.ctr_batches(cfg.n_sparse, cfg.vocab_per_field,
+                                          32), n_steps=5)
+        outs[donate] = (mine, out)
+    (kept, func), (given, don) = outs[False], outs[True]
+    _assert_trees(don["params"], func["params"], exact=True)
+    _assert_trees(don["opt"], func["opt"], exact=True)
+    assert [h["loss"] for h in don["history"]] == \
+        [h["loss"] for h in func["history"]]
+    _assert_trees(kept, tp, exact=True)             # functional: untouched
+    assert all(a.data_ptr() == b.data_ptr() for a, b in
+               zip(leaves(given), leaves(don["params"])))
+    # the checkpoint written mid-run holds step 3's state, not a later one
+    back = TC.restore(str(tmp_path / "True"), 3, {"params": tp,
+                                                  "opt": func["opt"]}, CPU)
+    mid = TC.restore(str(tmp_path / "False"), 3, {"params": tp,
+                                                  "opt": func["opt"]}, CPU)
+    _assert_trees(back, mid, exact=True)
+
+
 def test_straggler_detection(tmp_path, deepfm):
     cfg, _, _, tp = deepfm
     tr = TLOOP.Trainer(_port_loss(cfg), TO.OptConfig(lr=1e-3),
@@ -454,6 +488,15 @@ def test_launch_train_smoke_on_cpu(tmp_path):
               if l.startswith("step")]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "family=recsys" in res.stdout
-    res = subprocess.run(cmd[:4] + ["gemma-2b", "--device", "cpu"], env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 2 and "item 5b" in res.stderr
+    # the LM and GNN archs, once refused (exit 2), train too
+    for arch, family in (("gemma-2b", "lm"), ("dimenet", "gnn")):
+        res = subprocess.run(
+            cmd[:4] + [arch, "--smoke", "--steps", "6", "--batch", "2",
+                       "--seq", "16", "--device", "cpu", "--ckpt",
+                       str(tmp_path / arch)],
+            env=env, capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stderr
+        losses = [float(l.split("loss")[1]) for l in res.stdout.splitlines()
+                  if l.startswith("step")]
+        assert len(losses) == 2 and all(np.isfinite(losses)), arch
+        assert f"family={family}" in res.stdout
