@@ -31,34 +31,37 @@ Phases:
      vectors (the deep_like preset with the exact kNN builder), 10,000
      queries served in batches of 1,000 through KBest.search at W=4 and
      W=1 on the kernels (L=96; the preset's L=64 once, for the record),
-     then the plain path, search_padded and a save/load round trip;
+     then the plain path, search_padded and a save/load round trip of
+     the same config over the first ROUND_TRIP_N rows;
   5. the quantized kinds on the same Deep1M graph (no second build): the
      `sq` preset and the registry's `pq8` (pq_m=16) attached to a clone
      of the built index, trained, and served like phase 4 at W=4 and W=1,
-     kernel and plain, with a save/load round trip of each, `pq8` once
-     more with the re-rank over the whole queue of L, and a check that PQ
-     training on the card is deterministic;
+     kernel and plain, with a save/load round trip of each (the kind
+     attached to a graph over the first ROUND_TRIP_N rows, as in phases
+     6-8), `pq8` once more with the re-rank over the whole queue of L,
+     and a check that PQ training on the card is deterministic;
   6. the 8- and 12-byte kinds on the same graph, the same way: the
      registry's `pq4` and `pq4+u8lut` (pq_m=16, L=96) and the `bin`
      preset (L=320, re-rank of rescore_factor * k = 320), all 10,000
      queries at W=4 and W=1 on the kernels, one batch of each on the plain
      path, QPS in turns with `none`, a save/load round trip of a pq4 and
-     a bin index, and what caps their recall at 1M: pq4 re-ranked over
-     its whole queue, bin twice as deep, and the share of the true top-10
-     within bin's exact Hamming top-320 over all rows;
+     a bin index at ROUND_TRIP_N rows, and what caps their recall at 1M:
+     pq4 re-ranked over its whole queue, bin twice as deep, and the share
+     of the true top-10 within bin's exact Hamming top-320 over all rows;
   7. the IVF family on the same 1,000,000 vectors and 10,000 queries (no
      graph): the `ivf_index_config`, `ivf_pq4_index_config` and
      `ivf_bin_index_config` presets for deep_like (nlist = 1,000, residual
      codes, ip) built on the card and served in batches of 1,000 through
      the three list-scan kernels, one batch of each on the plain path,
      `ivf_pq` once more at 4x its nprobe, and a save/load round trip of
-     the bin index;
+     the bin preset at ROUND_TRIP_N rows;
   8. the sharded composition (`ShardedKBest`) on the same vectors and
      queries: phase 4's index wrapped as one shard (bit-identical to
      `KBest.search`), phase 4's config over two shards (two independent
-     500,000-row builds) served at W=4 and W=1 with a save/load round
-     trip, and `sharded_ivf_index_config("deep_like")` (two shards of
-     `ivf_pq`, nlist = sqrt(500,000)) beside phase 7's row;
+     500,000-row builds) served at W=4 and W=1, a save/load round trip
+     of two shards over ROUND_TRIP_N rows, and
+     `sharded_ivf_index_config("deep_like")` (two shards of `ivf_pq`,
+     nlist = sqrt(500,000)) beside phase 7's row;
   9. the serving tier: a `SearchEngine` (buckets 8-256) over phase 4's
      graph, warmed (6 traces), a closed `serve_loop` drain of all queries
      as seeded requests of 1-64 with every request's ids held against
@@ -98,15 +101,26 @@ Phases:
      MoE archs' routing and kept sets equal); (b) the five LM archs at
      their full widths in bf16 with seeded weights, depth cut only where
      one card forces it (llama4-scout 12 of 48 layers, kimi-k2 1 of 61):
-     prefill at B=1 (S=4,096; 2,048 for the two MoE archs), 64 greedy
+     prefill at B=1 (S=4,096; 2,048 for the two MoE archs), 32 greedy
      decode steps from a cache of 32,768 positions (B=4; 8 for chatglm3
      and gemma, 2 for llama4) with the step's memory floor and the card's
-     busy share, and prefill + decode against a forward over the same 256
-     tokens; (c) 20 AdamW steps (donated buffers) of gemma-2b at full
-     depth, B=1 x 4,096, and of llama4-scout at one layer, B=1 x 2,048;
+     busy share of BUSY_STEPS steps, and prefill + decode against a
+     forward over the same 256 tokens; (c) 20 AdamW steps (donated
+     buffers) of gemma-2b at full depth, B=1 x 4,096, and of
+     llama4-scout at one layer, B=1 x 2,048;
      (d) DimeNet's molecule and minibatch_lg shapes, 20 steps each
      through the Trainer, one batch's forward against the host; (e) the
-     launchers' `--mode lm` and `--arch dimenet` on their default device.
+     launchers' `--mode lm` and `--arch dimenet` on their default device;
+ 13. the device mesh (launch/mesh.py), run after phase 10 while phase 4's
+     index is held: an NCCL process group of one rank over a file store
+     and make_test_mesh(); (a) build_sharded_search over phase 4's graph
+     as the one shard, on the gather_dist kernel, all queries at W=4 and
+     W=1, ids and distances bit-equal to `search`, recall@10 and QPS;
+     (b) serve_retrieval_shardmap on batch_dist over bst's 10^6-item
+     table at full width, 1 and 512 queries, against serve_retrieval;
+     (c) moe_ffn_shardmap at ep = tp = 1 against moe_ffn: both MoE archs'
+     f32 smoke layers (forward, aux, every gradient) and one llama4-scout
+     layer at full width in bf16.
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -135,6 +149,10 @@ SECTOR = 32                      # bytes: the least a gather reads from HBM
 RTOL, ATOL = 3e-5, 3e-4          # the reference's own (tests/test_kernels.py)
 N_MAIN, Q_MAIN, BATCH = 1_000_000, 10_000, 1000
 N_ANCHOR, Q_ANCHOR = 50_000, 100
+# the save/load round trips of phases 4-8 run on indexes over the first
+# ROUND_TRIP_N rows (a cut: np.savez_compressed of the 1M rows and graph
+# took 25-37 s each on the card's host)
+ROUND_TRIP_N = 50_000
 # The main path's build and queue size at 1M (benchmarks/
 # torch_build_quality.py on the H100): the preset's NN-descent start
 # reaches kNN recall 0.21 at 1M and caps search recall@10 at 0.75 even at
@@ -174,14 +192,14 @@ RETRIEVAL_DIMS, RETRIEVAL_K = (10, 32, 64), 100
 RESUME_FAIL_AT, RESUME_EVERY, RESUME_ATOL = 12, 5, 1e-5
 # phase 11's ANN over bst's item table: its first rows (a cut from 10^6 to
 # keep the smoke inside its limit: the 10^6 build took 248 s, 161 s of it
-# the connectivity repair)
-RECSYS_ANN_N = 500_000
+# the connectivity repair, and 500,000 rows 82 s)
+RECSYS_ANN_N = 200_000
 # phase 12, the LM and GNN families (PERF.md §4). Parity: the smoke configs
 # on the card against the port on the host, f32, TF32 off, within the CPU
 # tests' bounds (rtol 1e-5; atol a share of each output's or gradient
 # leaf's largest magnitude) unless stated here. Full width, bf16: the
 # layers one 80 GB card holds (the rest cut), the prefill length, decode's
-# batch from a cache of decode_32k's 32,768 positions of which the last 64
+# batch from a cache of decode_32k's 32,768 positions of which the last 32
 # are generated, and the consistency check's lengths (prefill 192, then
 # 64 decode steps, against a forward over 256). Training: 20 AdamW steps
 # (steps 5-19 timed) of gemma-2b at full depth and llama4-scout at one
@@ -193,7 +211,10 @@ LM_LAYERS = dict(llama4_scout_17b_a16e=12, kimi_k2_1t_a32b=1)
 LM_PREFILL_S = dict(llama4_scout_17b_a16e=2048, kimi_k2_1t_a32b=2048)
 PREFILL_S = 4096
 LM_DECODE_B = dict(chatglm3_6b=8, gemma_2b=8, llama4_scout_17b_a16e=2)
-DECODE_B, DECODE_MAX_LEN, DECODE_STEPS = 4, 32_768, 64
+DECODE_B, DECODE_MAX_LEN, DECODE_STEPS = 4, 32_768, 32
+# decode steps under torch.profiler for the busy share (a cut: profiling
+# 8 of qwen2.5-14b's steps took about 25 s)
+BUSY_STEPS = 2
 CONSIST_T, CONSIST_PREFILL = 256, 192
 # prefill + decode against a forward, dense archs in bf16: on an H100 80GB
 # HBM3 at 700 W this read 1.77e-2 (qwen2.5-14b), 1.64e-2 (chatglm3-6b) and
@@ -213,6 +234,7 @@ FUSED_STEPS = ("fused_expand", "fused_expand_sq", "fused_expand_pq",
                "fused_expand_pq4", "fused_expand_bin")
 
 REPORT: dict = {}
+SMALL: dict = {}        # small_graph's one build
 
 # Each kernel: its source (src/repro_torch/kernels/csrc/<source>.cu), the
 # TPU kernel it replaces, and the path whose launches the kernels line
@@ -245,8 +267,11 @@ KERNEL_SOURCES = {
     "ivf_scan": ("ivf_scan", "src/repro/kernels/ivf_scan.py:62", "ivf")}
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f}s]", *a, flush=True)
 
 
 class StageLog(dict):
@@ -1370,20 +1395,13 @@ def phase_main():
     assert int(st.n_hops[~vmt].sum()) == 0 and int(st.n_dist[~vmt].sum()) == 0
     log("[main] search_padded: valid rows equal search, padded rows empty")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        idx.save(f"{tmp}/deep1m.graph")
-        idx2 = KBest.load(f"{tmp}/deep1m.graph", device=DEVICE)
-        rt_s = time.perf_counter() - t0
-    _, i2 = idx2.search(qb, search_cfg=kern)
-    _, i3 = idx.search(qb, search_cfg=kern)
-    assert torch.equal(i2, i3)
-    log(f"[main] save/load round trip {rt_s:.1f} s: identical ids")
     counts = ops.launch_counts()
     log(f"[main] kernel launches on the main path: {counts}")
     for name in ("fused_expand", "gather_dist", "batch_dist"):
         assert counts[name] > 0, counts
     REPORT["main"]["launches"] = counts
+    REPORT["main"]["save_load_s"] = round_trip(
+        "main", small_graph(idx, ds), qb, kern)
     return counts, idx, ds, rec
 
 
@@ -1417,6 +1435,39 @@ def attach(idx, quant, search=None):
     return qidx, time.perf_counter() - t0
 
 
+def small_graph(idx, ds):
+    """A graph over the first ROUND_TRIP_N rows with phase 4's config,
+    built once: phase 4's save/load round trip, and what phases 5 and 6
+    attach a kind to for theirs."""
+    from repro_torch.core.index import KBest
+    if "graph" not in SMALL:
+        SMALL["graph"] = KBest(idx.config, device=DEVICE).add(
+            ds.base[:ROUND_TRIP_N])
+        sync()
+    return SMALL["graph"]
+
+
+def round_trip(tag, index, qb, scfg) -> float:
+    """Save `index`, load it back through its class and hold the ids of
+    the batch `qb` at `scfg` to the original's; returns the seconds of
+    the save and the load."""
+    import numpy as np
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        index.save(f"{tmp}/index")
+        back = type(index).load(f"{tmp}/index", device=DEVICE)
+        rt_s = time.perf_counter() - t0
+    _, i2 = back.search(qb, search_cfg=scfg)
+    _, i3 = index.search(qb, search_cfg=scfg)
+    assert torch.equal(i2, i3), tag
+    if hasattr(index, "offsets"):
+        assert np.array_equal(back.offsets, index.offsets), tag
+    log(f"[{tag}] save/load round trip at {ROUND_TRIP_N:,} rows "
+        f"{rt_s:.1f} s: identical ids")
+    return rt_s
+
+
 def log_row(tag, row):
     log(f"[{tag}] W={row['W']} L={row['L']} {row['dist_impl']}: recall@10 "
         f"{row['recall']:.4f}, QPS {row['qps']:.0f}, iters mean "
@@ -1446,6 +1497,7 @@ def phase_quant(idx, ds, none_rec):
     s4 = dataclasses.replace(kern, beam_width=4)
     served = {"none": idx}
     REPORT["quant"] = {}
+    small = small_graph(idx, ds)
     ops.reset_launch_counts()
     for kind, quant in quants.items():
         qidx, train_s = attach(idx, quant)
@@ -1486,18 +1538,9 @@ def phase_quant(idx, ds, none_rec):
             else:
                 # a build-fault detector only; the value is recorded
                 assert rec[(W, "kernel")] >= 0.60, rec
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            qidx.save(f"{tmp}/deep1m_{kind}.graph")
-            back = KBest.load(f"{tmp}/deep1m_{kind}.graph", device=DEVICE)
-            rt_s = time.perf_counter() - t0
-        _, i2 = back.search(qb, search_cfg=s4)
-        _, i3 = qidx.search(qb, search_cfg=s4)
-        assert torch.equal(i2, i3)
-        log(f"[{kind}] save/load round trip {rt_s:.1f} s: identical ids")
-        rep_q["save_load_s"] = rt_s
+        rep_q["save_load_s"] = round_trip(kind, attach(small, quant)[0], qb,
+                                          s4)
         served[kind] = qidx
-        del back
         if kind == "pq":
             # the same codes re-ranked over the whole queue of L (the
             # default depth is 4k = 40): how much of pq8's recall the
@@ -1537,13 +1580,12 @@ def phase_pq4_bin(idx, ds, none_rec):
     re-rank of rescore_factor * k) on phase 4's graph, attached as in
     phase 5: all queries at W=4 and W=1 on the kernels, one batch per kind
     and W on the plain path, the idle share, QPS in turns with none, and a
-    1M save/load round trip of a pq4 and a bin index. The fault floors
-    (written before the first run) detect faults; they are no targets."""
+    save/load round trip of a pq4 and a bin index over ROUND_TRIP_N rows.
+    The fault floors (written before the first run) detect faults; they
+    are no targets."""
     import numpy as np
-    import torch
     from repro_torch.configs.kbest import bin_index_config
     from repro_torch.core import quantize as qz
-    from repro_torch.core.index import KBest
     from repro_torch.core.types import QuantConfig
     from repro_torch.kernels import ops
 
@@ -1559,6 +1601,7 @@ def phase_pq4_bin(idx, ds, none_rec):
     served = {"none": idx}
     rep = REPORT["pq4_bin"] = {}
     rec = {}
+    small = small_graph(idx, ds)
     ops.reset_launch_counts()
     for name, (quant, search, want_bytes) in kinds.items():
         qidx, train_s = attach(idx, quant, search)
@@ -1591,17 +1634,8 @@ def phase_pq4_bin(idx, ds, none_rec):
             f"{1 - dev_ms / wall_ms:.1%}, under the profiler)")
         r["profile_W4"] = dict(device_ms=dev_ms, wall_ms=wall_ms)
         if name in ("pq4", "bin"):
-            with tempfile.TemporaryDirectory() as tmp:
-                t0 = time.perf_counter()
-                qidx.save(f"{tmp}/deep1m.graph")
-                back = KBest.load(f"{tmp}/deep1m.graph", device=DEVICE)
-                rt_s = time.perf_counter() - t0
-            _, i2 = back.search(qb, search_cfg=s4)
-            _, i3 = qidx.search(qb, search_cfg=s4)
-            assert torch.equal(i2, i3)
-            log(f"[{name}] save/load round trip {rt_s:.1f} s: identical ids")
-            r["save_load_s"] = rt_s
-            del back
+            r["save_load_s"] = round_trip(
+                name, attach(small, quant, search)[0], qb, s4)
         served[name] = qidx
     counts = ops.launch_counts()
     log(f"[pq4/bin] kernel launches on these paths: {counts}")
@@ -1687,9 +1721,9 @@ def phase_ivf(ds, none_rec):
     each built on the card and all queries served through the list-scan
     kernels, one batch on the plain path held against them, the idle
     share, n_dist, the list lengths, build stages, peak memory and code
-    bytes; ivf_pq once more at 4x its nprobe; a 1M save/load round trip
-    of the bin index. Fault floors (written before the first run) detect
-    faults; they are no targets."""
+    bytes; ivf_pq once more at 4x its nprobe; a save/load round trip of
+    the bin preset over ROUND_TRIP_N rows. Fault floors (written before
+    the first run) detect faults; they are no targets."""
     import numpy as np
     import torch
     from repro_torch.configs.kbest import (ivf_bin_index_config,
@@ -1760,17 +1794,8 @@ def phase_ivf(ds, none_rec):
         if name == "ivf_pq":
             ivf_pq = idx                 # phase 9 serves it under overload
         if name == "ivf_bin":
-            with tempfile.TemporaryDirectory() as tmp:
-                t0 = time.perf_counter()
-                idx.save(f"{tmp}/deep1m.ivf")
-                back = KBest.load(f"{tmp}/deep1m.ivf", device=DEVICE)
-                rt_s = time.perf_counter() - t0
-            _, i2 = back.search(qb, search_cfg=kern)
-            _, i3 = idx.search(qb, search_cfg=kern)
-            assert torch.equal(i2, i3)
-            log(f"[{name}] save/load round trip {rt_s:.1f} s: identical ids")
-            r["save_load_s"] = rt_s
-            del back
+            r["save_load_s"] = round_trip(name, KBest(cfg, device=DEVICE).add(
+                ds.base[:ROUND_TRIP_N]), qb, kern)
         del idx
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
@@ -1792,11 +1817,10 @@ def phase_sharded(idx, ds, none_rec, ivf_pq):
     """The sharded composition on phase 4's vectors and queries: phase 4's
     index wrapped as one shard (bit-identical to it, no second build);
     phase 4's config over two shards (two independent 500,000-row builds)
-    served at W=4 and W=1, with its save/load round trip; the deep_like
-    IVF-PQ preset over two shards beside phase 7's `ivf_pq`; each QPS in
-    turns with its one-index counterpart. Returns the 2-shard graph for
-    phase 9."""
-    import numpy as np
+    served at W=4 and W=1, a save/load round trip of the config over
+    ROUND_TRIP_N rows; the deep_like IVF-PQ preset over two shards beside
+    phase 7's `ivf_pq`; each QPS in turns with its one-index counterpart.
+    Returns the 2-shard graph for phase 9."""
     import torch
     from repro_torch.configs.kbest import sharded_ivf_index_config
     from repro_torch.core.sharded import ShardedKBest, shard_bounds
@@ -1857,19 +1881,6 @@ def phase_sharded(idx, ds, none_rec, ivf_pq):
     # reference's invariant), less a margin for ulp ties
     assert rec[4] >= none_rec[(4, "kernel")] - 0.005, (rec, none_rec)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        sh.save(f"{tmp}/deep1m.sharded")
-        back = ShardedKBest.load(f"{tmp}/deep1m.sharded", device=DEVICE)
-        rt_s = time.perf_counter() - t0
-    _, i2 = back.search(qb, search_cfg=kern)
-    _, i3 = sh.search(qb, search_cfg=kern)
-    assert torch.equal(i2, i3)
-    assert np.array_equal(back.offsets, sh.offsets)
-    del back
-    g["save_load_s"] = rt_s
-    log(f"[sharded] 2-shard save/load round trip {rt_s:.1f} s: identical "
-        f"ids")
     counts = ops.launch_counts()
     g["launches"] = counts
     log(f"[sharded] kernel launches on the 2-shard graph path: {counts}")
@@ -1877,6 +1888,8 @@ def phase_sharded(idx, ds, none_rec, ivf_pq):
         assert counts[name] > 0, counts
     g["qps_in_turns"] = qps_in_turns("sharded", {"one": idx, "two": sh},
                                      ds, dict(one=kern, two=kern))
+    g["save_load_s"] = round_trip("sharded", ShardedKBest(
+        cfg, device=DEVICE).add(ds.base[:ROUND_TRIP_N]), qb, kern)
 
     # two shards of the IVF-PQ preset
     ops.reset_launch_counts()
@@ -2799,9 +2812,9 @@ def decode_floor_bytes(cfg, params, B, start, steps) -> float:
 
 
 def lm_full(i, name, fails) -> dict:
-    """One LM arch at full width (bf16, seeded weights): prefill, 64 decode
-    steps from a 32k cache, and (dense archs) prefill + decode held to a
-    forward over the same tokens."""
+    """One LM arch at full width (bf16, seeded weights): prefill,
+    DECODE_STEPS decode steps from a 32k cache, and (dense archs) prefill
+    + decode held to a forward over the same tokens."""
     import torch
     from repro_torch import configs as reg
     from repro_torch.models import transformer as T
@@ -2877,7 +2890,7 @@ def lm_full(i, name, fails) -> dict:
     assert int(state["len"][0]) == DECODE_MAX_LEN
     assert bool(torch.isfinite(state["logits"]).all())
     peak = peak_gib()
-    dev_ms, busy_wall = device_busy(lambda: run(8))
+    dev_ms, busy_wall = device_busy(lambda: run(BUSY_STEPS))
     floor = decode_floor_bytes(cfg, params, B, start, DECODE_STEPS)
     row["decode"] = dict(
         B=B, context=DECODE_MAX_LEN, steps=DECODE_STEPS, ms_per_token=ms,
@@ -2890,7 +2903,8 @@ def lm_full(i, name, fails) -> dict:
         f"on the host clock), {d['tokens_per_s']:,.0f} tokens/s; memory "
         f"floor {d['floor_gb']:.2f} GB a step = {d['floor_ms']:.2f} ms "
         f"({d['floor_ms'] / ms:.1%} of the step); peak {peak:.2f} GiB; "
-        f"busy {d['busy_share']:.1%} of 8 steps under the profiler")
+        f"busy {d['busy_share']:.1%} of {BUSY_STEPS} steps under the "
+        f"profiler")
     del cache, state
     free_card()
 
@@ -3102,6 +3116,198 @@ def phase_models():
         raise AssertionError("phase models: " + "; ".join(fails))
 
 
+# --------------------------------------------------------------------------
+# phase 13
+# --------------------------------------------------------------------------
+def mesh_search(mesh, idx, ds) -> dict:
+    """(a) build_sharded_search over phase 4's Deep1M graph as one shard,
+    on the gather_dist kernel, every batch of queries at W=4 and W=1: ids
+    and distances bit-equal to `search` on the same arrays (the P=1
+    merge is the identity), recall@10 of the ids mapped through the
+    index's order, and the sharded call's QPS."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search as S
+    from repro_torch.core.sharded import (build_sharded_search,
+                                          make_sharded_arrays)
+    from repro_torch.data.vectors import recall_at_k
+    from repro_torch.kernels import ops
+    rep = {}
+    n = idx.db.shape[0]
+    t0 = time.perf_counter()
+    db, graph, entries, queries = make_sharded_arrays(
+        mesh, idx.db.cpu().numpy(), idx.graph.cpu().numpy(),
+        np.asarray([idx.entry], np.int32), ds.queries)
+    rep["arrays_s"] = time.perf_counter() - t0
+    order = (torch.arange(n, device=db.device) if idx.order is None else
+             torch.as_tensor(idx.order, device=db.device).long())
+    for W in (4, 1):
+        scfg = dataclasses.replace(idx.config.search, L=MAIN_L, beam_width=W,
+                                   dist_impl="kernel")
+        fn = build_sharded_search(mesh, scfg, idx.config.metric, n)
+        fn(db, graph, entries, queries[:BATCH])                 # warm
+        before = ops.launch_counts()["gather_dist"]
+        sync()
+        t0 = time.perf_counter()
+        outs = [fn(db, graph, entries, queries[s:s + BATCH])
+                for s in range(0, len(queries), BATCH)]
+        sync()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()["gather_dist"] - before
+        dist_fn = S.make_dist_fn(db, idx.config.metric, "kernel")
+        equal = True
+        for s, (d, i) in zip(range(0, len(queries), BATCH), outs):
+            d0, i0, _ = S.search(graph, queries[s:s + BATCH], entries,
+                                 dist_fn=dist_fn, cfg=scfg, n_total=n)
+            equal &= torch.equal(i, i0) and torch.equal(d, d0)
+        ids = torch.cat([i for _, i in outs])
+        user = torch.where(ids >= 0, order[ids.clamp(min=0)], -1)
+        row = rep[f"W{W}"] = dict(
+            qps=len(queries) / wall, launches=launches,
+            recall=recall_at_k(user.cpu().numpy(), ds.gt_ids, 10),
+            equal_to_search=bool(equal))
+        log(f"[mesh] (a) sharded search, 1 shard of {n:,}, W={W}"
+            f", L={MAIN_L}: {row['qps']:.0f} QPS, recall@10 "
+            f"{row['recall']:.4f}, {launches} gather_dist launches; ids "
+            f"and distances bit-equal to search: {equal}")
+        assert equal and launches > 0, row
+    return rep
+
+
+def mesh_retrieval(mesh) -> dict:
+    """(b) serve_retrieval_shardmap on batch_dist over bst's 10^6-item
+    table at full_config() width, the one rank holding the whole table,
+    against serve_retrieval (the same kernel: equal distances and ids; the
+    plain path: the CPU tests' distance bound and ids equal where apart by
+    twice the error), at Q=1 and Q=SERVE_P99, with both calls' ms."""
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as R
+    rep = {}
+    cfg = reg.get("bst").full_config()
+    params = R.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(2))
+    g = torch.Generator(device=DEVICE).manual_seed(25)
+    n = R.candidate_table(params, cfg).shape[0]
+    for Q in (1, SERVE_P99):
+        batch = recsys_batch(cfg, Q, g)
+        before = ops.launch_counts()["batch_dist"]
+        sd, si = R.serve_retrieval_shardmap(params, batch, cfg, mesh,
+                                            k=RETRIEVAL_K, use_kernel=True)
+        launches = ops.launch_counts()["batch_dist"] - before
+        kd, ki = R.serve_retrieval(params, batch, cfg, k=RETRIEVAL_K,
+                                   use_kernel=True)
+        pd, pi = R.serve_retrieval(params, batch, cfg, k=RETRIEVAL_K)
+        same = torch.equal(sd, kd) and torch.equal(si, ki)
+        ok, err = close(sd, pd)
+        ids_ok, n_apart = separated_ids_equal((sd, si), (pd, pi), 2 * err)
+        row = rep[Q] = dict(
+            launches=launches, equal_to_kernel_path=same, max_abs_err=err,
+            ids_apart=n_apart,
+            shardmap_ms=cuda_ms(lambda: R.serve_retrieval_shardmap(
+                params, batch, cfg, mesh, k=RETRIEVAL_K, use_kernel=True),
+                reps=5),
+            serve_ms=cuda_ms(lambda: R.serve_retrieval(
+                params, batch, cfg, k=RETRIEVAL_K, use_kernel=True), reps=5))
+        log(f"[mesh] (b) serve_retrieval_shardmap Q={Q} x {n:,}: "
+            f"{row['shardmap_ms']:.3f} ms (serve_retrieval "
+            f"{row['serve_ms']:.3f}), {launches} batch_dist launch; equal "
+            f"to serve_retrieval on the kernel: {same}; max err against "
+            f"the plain path {err:.2e}, ids equal on the {n_apart} slots "
+            f"apart by twice it")
+        assert launches == 1 and same and ok and ids_ok, row
+    return rep
+
+
+def mesh_moe(mesh, fails) -> dict:
+    """(c) moe_ffn_shardmap at ep = tp = 1 against moe_ffn: each MoE
+    arch's f32 smoke layer (TF32 off since phase 1), forward, aux and
+    every gradient of <out, g> + aux within phase 12 (a)'s bounds; one
+    llama4-scout layer at full width in bf16 over LM_PREFILL_S tokens,
+    its difference and both forwards' ms recorded."""
+    import torch
+    from repro_torch import configs as reg
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.layers import moe as MOE
+    rep = {}
+    g = torch.Generator(device=DEVICE).manual_seed(26)
+
+    def shardmap_cfg(moe):
+        return dataclasses.replace(moe, ep_axis="data", tp_axis="model",
+                                   token_axes=("data",), use_shardmap=True,
+                                   ep_size=1, tp_size=1)
+
+    for name in ("kimi_k2_1t_a32b", "llama4_scout_17b_a16e"):
+        lm = reg.get(name).smoke_config()
+        cfg = shardmap_cfg(lm.moe)
+        p = MOE.init_moe(g, lm.d_model, cfg)
+        x = torch.randn((64, lm.d_model), generator=g, device=DEVICE)
+        gy = torch.randn((64, lm.d_model), generator=g, device=DEVICE)
+        outs = []
+        for sharded in (False, True):
+            leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+            xx = x.clone().requires_grad_(True)
+            with mesh_context(mesh):
+                o, aux = (MOE.moe_ffn_shardmap if sharded else MOE.moe_ffn)(
+                    leaves, xx, cfg)
+            names = sorted(leaves)
+            grads = torch.autograd.grad(torch.sum(o * gy) + aux,
+                                        [leaves[k] for k in names] + [xx])
+            outs.append([("out", o), ("aux", aux)] + [
+                (f"grad:{k}", t) for k, t in zip(names + ["x"], grads)])
+        pairs = [(k, a, b) for (k, a), (_, b) in zip(outs[1], outs[0])]
+        rep[name] = check_parity(f"mesh moe {name}", pairs, fails)
+        log(f"[mesh] (c) moe_ffn_shardmap, {name} smoke layer f32 at ep=tp=1 "
+            f"against moe_ffn, largest error over scale: {rep[name]}")
+
+    lm = reg.get("llama4_scout_17b_a16e").full_config()
+    cfg = shardmap_cfg(lm.moe)
+    free_card()
+    p = MOE.init_moe(g, lm.d_model, cfg, dtype=torch.bfloat16)
+    T = LM_PREFILL_S["llama4_scout_17b_a16e"]
+    x = torch.randn((T, lm.d_model), generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    with torch.no_grad(), mesh_context(mesh):
+        o0, a0 = MOE.moe_ffn(p, x, cfg)
+        o1, a1 = MOE.moe_ffn_shardmap(MOE.local_moe_params(p, cfg), x, cfg)
+        ok, err = within(o1, o0, PARITY_OF_SCALE)
+        rep["llama4_full_bf16"] = dict(
+            tokens=T, err_over_scale=err, aux_diff=abs(float(a1 - a0)),
+            moe_ffn_ms=cuda_ms(lambda: MOE.moe_ffn(p, x, cfg), reps=5),
+            shardmap_ms=cuda_ms(lambda: MOE.moe_ffn_shardmap(p, x, cfg),
+                                reps=5))
+    log(f"[mesh] (c) llama4-scout layer at full width (d={lm.d_model}, "
+        f"E={cfg.n_experts}, f={cfg.d_ff_expert}), bf16, {T} tokens: "
+        f"moe_ffn_shardmap vs moe_ffn {err:.3e} of scale, aux apart by "
+        f"{rep['llama4_full_bf16']['aux_diff']:.3e}; "
+        f"{rep['llama4_full_bf16']['shardmap_ms']:.2f} ms against "
+        f"{rep['llama4_full_bf16']['moe_ffn_ms']:.2f}")
+    del p, x
+    free_card()
+    return rep
+
+
+def phase_mesh(idx, ds):
+    """phase 13: the device mesh over NCCL, world size 1 (a file store in
+    a temporary directory; one card takes one rank), make_test_mesh():
+    (a) the sharded search on phase 4's graph, (b) the sharded retrieval,
+    (c) the sharded MoE. Any failure raises."""
+    from repro_torch.launch import mesh as M
+    rep = REPORT["mesh"] = {}
+    fails = []
+    t0 = time.perf_counter()
+    with M.process_group(DEVICE):
+        mesh = M.make_test_mesh(DEVICE)
+        rep["init_s"] = time.perf_counter() - t0
+        log(f"[mesh] {M.backend(DEVICE)} group, world size 1, mesh "
+            f"{mesh.shape} {mesh.mesh_dim_names}: {rep['init_s']:.1f} s")
+        rep["search"] = mesh_search(mesh, idx, ds)
+        rep["retrieval"] = mesh_retrieval(mesh)
+        rep["moe"] = mesh_moe(mesh, fails)
+    if fails:
+        raise AssertionError("phase mesh: " + "; ".join(fails))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3138,6 +3344,7 @@ def main() -> int:
     del sharded, ivf_pq
     torch.cuda.empty_cache()
     timed("tuner", phase_tuner, idx, ds)
+    timed("mesh", phase_mesh, idx, ds)
     del idx
     torch.cuda.empty_cache()
     timed("recsys", phase_recsys)

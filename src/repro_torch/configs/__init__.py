@@ -9,9 +9,7 @@ in kbest.py). Each module exposes
     smoke_config()  -> reduced same-family config for CPU smoke tests
 
 Select with --arch <id> in the launchers. The port has every family
-(LM, GNN, RecSys). `NotPortedError` marks what is mesh-bound and has no
-counterpart on one card (the LM's `MoEConfig.use_shardmap` dispatch); it
-names the ROADMAP item that would port it.
+(LM, GNN, RecSys).
 """
 from __future__ import annotations
 
@@ -44,10 +42,6 @@ _ALIAS = {
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
 RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
-
-
-class NotPortedError(NotImplementedError):
-    """A mesh-bound path of the reference that the port does not have."""
 
 
 def get(arch: str):

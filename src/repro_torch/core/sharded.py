@@ -26,11 +26,12 @@ all shards), `early_terminated` is ANDed (a lane counts as early-terminated
 only when every shard's traversal fired), `iters` is the max (the critical
 path). All reduce to the one-index stats at P = 1.
 
-The card is one device, so the shards run one after another on it.
-The reference's `shard_map` lowering (`mesh_size`, `build_sharded_search`,
-`make_sharded_arrays`) has no counterpart here: on a one-card machine there
-is no device mesh to lower it to or test it on. `pad_to_shard_boundary`, its
-numpy layout helper, is kept.
+`ShardedKBest` runs its shards one after another on one device. The
+reference's `shard_map` lowering of the full-precision graph path is
+`build_sharded_search` / `make_sharded_arrays` below, over a device mesh
+(`launch/mesh.py`) with one shard a rank: each rank searches its own block
+and the per-shard top-k are all-gathered over the flattened mesh and
+merged the same way.
 
 Persistence is the reference's: each shard through `KBest.save` as
 `<path>.shard<s>`, then the `<path>.sharded.json` manifest (n_shards,
@@ -43,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -56,6 +58,7 @@ from repro_torch.core.index import (KBest, _config_from_dict, _meta_path,
                                     mask_padded_lanes, prep_queries,
                                     resolve_device, resolve_search_cfg)
 from repro_torch.core.types import IndexConfig, SearchConfig
+from repro_torch.launch.mesh import gather_stack, mesh_device, mesh_flat
 
 
 def shard_bounds(n: int, n_shards: int) -> np.ndarray:
@@ -263,3 +266,81 @@ def pad_to_shard_boundary(db: np.ndarray, graph: np.ndarray, n_shards: int
         graph = np.concatenate(
             [graph, np.full((pad, graph.shape[1]), -1, graph.dtype)], axis=0)
     return db, graph, n_local
+
+
+# --------------------------------------------------------------------------
+# The device-mesh lowering of the sharded full-precision graph path: one
+# shard a rank, the same local search + all-gather + global top-k merge as
+# ShardedKBest.
+# --------------------------------------------------------------------------
+def mesh_size(mesh) -> int:
+    return math.prod(mesh.shape)
+
+
+def build_sharded_search(mesh, cfg: SearchConfig, metric: str, n_local: int):
+    """Returns fn(db, graph, entries, queries) -> (dists, ids), run by every
+    rank of the mesh on its own blocks (`make_sharded_arrays`):
+
+    db:      (n_local, d) this rank's rows of the (P*n_local, d) corpus
+    graph:   (n_local, M) its graph rows, *local* ids in [0, n_local)
+    entries: (1,) int32 its entry point (a local id)
+    queries: (Q, d) the same on every rank
+    Output:  (Q, k) the global top-k, the same on every rank; ids are rows
+             of the concatenated blocks (shard s's local id + s*n_local).
+
+    The rank's shard index is its row-major linear index over the mesh's
+    axes. Each rank runs `search` on `make_dist_fn(db, metric,
+    cfg.dist_impl)` (the gather_dist kernel for "kernel" on the card);
+    the merge is a stable ascending top-k over the shard-major
+    concatenation, ties to the lower position as `lax.top_k` breaks them.
+    """
+    flat = mesh_flat(mesh)
+    off = flat.index * n_local
+
+    def fn(db, graph, entries, queries):
+        dist_fn = search_mod.make_dist_fn(db, metric, cfg.dist_impl)
+        dists, ids, _ = search_mod.search(graph, queries, entries,
+                                          dist_fn=dist_fn, cfg=cfg,
+                                          n_total=n_local)
+        gids = torch.where(ids >= 0, ids + off, torch.full_like(ids, -1))
+        Q, k = dists.shape
+        all_d = gather_stack(dists, flat).permute(1, 0, 2).reshape(Q, -1)
+        all_i = gather_stack(gids, flat).permute(1, 0, 2).reshape(Q, -1)
+        vals, pos = stable_topk_smallest(all_d, k)
+        return vals, torch.gather(all_i, 1, pos)
+
+    return fn
+
+
+def make_sharded_arrays(mesh, db, graph, entries, queries):
+    """This rank's blocks for build_sharded_search, on the mesh's device,
+    from the global host arrays: db (n, d), graph (n, M) with local ids,
+    entries (P,) one local entry point a shard, queries (Q, d).
+
+    An uneven corpus (n % P != 0) is padded to the shard boundary with
+    sentinel rows first (pad_to_shard_boundary, whose tail-short layout
+    contract applies). The real rows of the block are checked to
+    round-trip exactly, as the reference checks its placement; that
+    cannot catch data laid out against the contract."""
+    flat = mesh_flat(mesh)
+    dev = mesh_device(mesh)
+    db = np.asarray(db)
+    graph = np.asarray(graph)
+    entries = np.asarray(entries)
+    assert entries.shape[0] == flat.size, \
+        f"need one entry point per shard: {entries.shape[0]} != {flat.size}"
+    n = db.shape[0]
+    db_p, graph_p, n_local = pad_to_shard_boundary(db, graph, flat.size)
+    lo = flat.index * n_local
+    out = (torch.as_tensor(db_p[lo:lo + n_local], device=dev),
+           torch.as_tensor(graph_p[lo:lo + n_local], dtype=torch.int32,
+                           device=dev),
+           torch.as_tensor(entries[flat.index:flat.index + 1],
+                           dtype=torch.int32, device=dev),
+           torch.as_tensor(queries, dtype=torch.float32, device=dev))
+    real = max(0, min(n, lo + n_local) - lo)
+    assert np.array_equal(out[0][:real].cpu().numpy(), db[lo:lo + real]), \
+        "db round-trip"
+    assert np.array_equal(out[1][:real].cpu().numpy(),
+                          graph[lo:lo + real]), "graph round-trip"
+    return out

@@ -13,11 +13,14 @@ assignments are dropped. The aux load-balancing loss is Switch-style.
 Every step matches the reference's: the top-k breaks ties to the lower
 expert index, as `lax.top_k` does (a stable descending sort, no host sync;
 `torch.topk`'s tie order is not fixed), and the kept set and slots are
-equal bit for bit. `MoEConfig`'s `ep_axis`, `tp_axis` and `token_axes` only
-pin the reference's sharding, so on one card they change no value: they
-are read and ignored. The reference's `moe_ffn_shardmap` (an `all_to_all`
-over an EP x TP mesh) has no counterpart on one card; a config with
-`use_shardmap=True` is refused by the model (`models/transformer.py`).
+equal bit for bit. In `moe_ffn`, `MoEConfig`'s `ep_axis`, `tp_axis` and
+`token_axes` only pin the reference's sharding and change no value.
+
+`moe_ffn_shardmap` is the reference's explicit-collective dispatch over an
+EP x TP device mesh (`launch/mesh.py`), with the collectives placed by
+hand; the model calls it when `use_shardmap` is set. Each rank passes its
+own blocks: its tokens and its slices of the expert weights
+(`local_moe_params`).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.launch import mesh as M
 from repro_torch.layers import common as L
 from repro_torch.layers import params as P
 from repro_torch.layers.params import Leaf
@@ -41,11 +45,14 @@ class MoEConfig:
     gated: bool = True           # SwiGLU experts
     act: str = "silu"
     router_aux_weight: float = 0.01
-    # the reference's EP/TP layout constraints: no value depends on them
+    # the mesh axes experts and expert widths are sharded over, and the
+    # axes the tokens are (moe_ffn_shardmap reads ep_axis and tp_axis; in
+    # moe_ffn they pin the reference's layout and no value depends on them)
     ep_axis: str = ""
     tp_axis: str = ""
     token_axes: tuple = ()
-    # the reference's explicit-collective dispatch (mesh-bound, not ported)
+    # explicit-collective dispatch over the ambient mesh (moe_ffn_shardmap)
+    # and the sizes of its EP and TP axes
     use_shardmap: bool = False
     ep_size: int = 0
     tp_size: int = 0
@@ -131,6 +138,49 @@ def dispatch(w: torch.Tensor, eidx: torch.Tensor, n_experts: int,
     return Dispatch(st, sw, keep, slot, buf[:E * C])
 
 
+def _slots(x: torch.Tensor, dp: Dispatch, E: int, C: int) -> torch.Tensor:
+    """The (E, C, d) slot buffer of x's rows (empty slots zero in x's
+    dtype, so a bf16 pipeline stays bf16). The gathers are index_selects,
+    whose backward (an index_add) does not serialize the empty slots' and
+    drops' runs of one repeated row."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where((dp.buf_tok >= 0)[:, None],
+                       torch.index_select(x, 0, dp.buf_tok.clamp(min=0)),
+                       zero).reshape(E, C, x.shape[1])
+
+
+def _combine(y: torch.Tensor, dp: Dispatch, n_tokens: int) -> torch.Tensor:
+    """The weighted scatter-add of the (E*C, d) expert outputs back to
+    (n_tokens, d)."""
+    EC, d = y.shape
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    contrib = torch.where(dp.keep[:, None],
+                          torch.index_select(y, 0, dp.slot.clamp(max=EC - 1))
+                          * dp.sw[:, None].to(y.dtype), zero)
+    return torch.zeros((n_tokens, d), dtype=y.dtype,
+                       device=y.device).index_add(0, dp.st, contrib)
+
+
+def _shared(params: dict, x: torch.Tensor, out: torch.Tensor,
+            cfg: MoEConfig) -> torch.Tensor:
+    """out plus the shared experts (DeepSeek/Kimi style, always on)."""
+    if "shared_w_in" not in params:
+        return out
+    act = L.act_fn(cfg.act)
+    hs = x @ params["shared_w_in"]
+    gs = x @ params["shared_w_gate"]
+    return out + (act(gs) * hs) @ params["shared_w_out"]
+
+
+def _aux(probs: torch.Tensor, eidx: torch.Tensor,
+         cfg: MoEConfig) -> torch.Tensor:
+    """The Switch load-balance loss (eq. 4) over these tokens' routing."""
+    E = cfg.n_experts
+    frac_tokens = _count(eidx[:, 0], E).float() / eidx.shape[0]
+    frac_probs = torch.mean(probs, dim=0)
+    return cfg.router_aux_weight * E * torch.sum(frac_tokens * frac_probs)
+
+
 def _experts(params: dict, xe: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Batched expert GEMMs over the (E, C, d) buffer, in its dtype."""
     act = L.act_fn(cfg.act)
@@ -150,34 +200,107 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig
     E = cfg.n_experts
     C = capacity(T, cfg)
     probs, w, eidx = route(params, x, cfg)
-
-    # aux load-balance loss (Switch eq. 4)
-    frac_tokens = _count(eidx[:, 0], E).float() / T
-    frac_probs = torch.mean(probs, dim=0)
-    aux = cfg.router_aux_weight * E * torch.sum(frac_tokens * frac_probs)
-
     dp = dispatch(w, eidx, E, C)
-    # the zero rows carry x's dtype, so a bf16 pipeline stays bf16; the
-    # gathers are index_selects, whose backward (an index_add) does not
-    # serialize the empty slots' and drops' runs of one repeated row
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    xe = torch.where((dp.buf_tok >= 0)[:, None],
-                     torch.index_select(x, 0, dp.buf_tok.clamp(min=0)),
-                     zero).reshape(E, C, d)
-    ye = _experts(params, xe, cfg).reshape(E * C, d)
+    ye = _experts(params, _slots(x, dp, E, C), cfg).reshape(E * C, d)
+    out = _combine(ye, dp, T)
+    return _shared(params, x, out, cfg).to(x.dtype), _aux(probs, eidx, cfg)
 
-    # weighted combine back to tokens
-    contrib = torch.where(dp.keep[:, None],
-                          torch.index_select(ye, 0,
-                                             dp.slot.clamp(max=E * C - 1))
-                          * dp.sw[:, None].to(ye.dtype), zero)
-    out = torch.zeros((T, d), dtype=ye.dtype, device=x.device).index_add(
-        0, dp.st, contrib)
 
-    # shared experts (DeepSeek/Kimi style, always on)
-    if "shared_w_in" in params:
-        act = L.act_fn(cfg.act)
-        hs = x @ params["shared_w_in"]
-        gs = x @ params["shared_w_gate"]
-        out = out + (act(gs) * hs) @ params["shared_w_out"]
-    return out.to(x.dtype), aux
+# --------------------------------------------------------------------------
+# explicit-collective MoE over an EP x TP mesh
+# --------------------------------------------------------------------------
+def local_moe_params(params: dict, cfg: MoEConfig) -> dict:
+    """This rank's blocks of (stacked) MoE params on the ambient mesh, the
+    reference's `P(ep, tp, None)` layout: w_in and w_gate (..., E, d, f)
+    keep experts [i*E/ep, (i+1)*E/ep) and d slice j of tp, w_out (..., E,
+    f, d) the same experts and f slice j; the router and shared experts
+    whole."""
+    mesh = M.current_mesh()
+    ep, tp = M.mesh_axis(mesh, cfg.ep_axis), M.mesh_axis(mesh, cfg.tp_axis)
+
+    def block(t):
+        E, w = t.shape[-3], t.shape[-2]
+        return t.narrow(-3, ep.index * (E // ep.size), E // ep.size).narrow(
+            -2, tp.index * (w // tp.size), w // tp.size)
+
+    return {k: block(v) if k in ("w_in", "w_gate", "w_out") else v
+            for k, v in params.items()}
+
+
+def moe_ffn_shardmap(params: dict, x: torch.Tensor, cfg: MoEConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """moe_ffn with hand-placed collectives on the ambient mesh (ep x tp,
+    `cfg.ep_axis` x `cfg.tp_axis`; `launch.mesh.mesh_context`).
+
+    Each rank passes its blocks of the reference's `in_specs`: x (T_l, d)
+    its tokens (sharded over the token axes, the same on every TP rank),
+    the router whole, w_in / w_gate (E_l, d/tp, f) and w_out (E_l, f/tp,
+    d) from `local_moe_params`. Returns (out (T_l, d), aux), out the same
+    on every TP rank. Per rank (r, c), in the reference's order:
+
+      1. route the T_l tokens (the router is whole: the same on every c);
+      2. column c dispatches its T_s = T_l/tp token slice into an
+         (E, C_l, d) buffer, C_l = max(1, int(T_s*K/E * factor));
+      3. all_to_all over ep -> (E_l, ep*C_l, d);
+      4. all_to_all over tp trades d for tokens -> (E_l, tp*C_row, d/tp),
+         the w_in / w_gate GEMMs, psum_scatter over tp -> (E_l, C_row, f);
+      5. the same trade of f for the down-projection;
+      6. all_to_all back over ep -> (E, C_l, d);
+      7. the weighted combine to (T_s, d), all_gather over tp -> (T_l, d);
+
+    then the shared experts on all T_l tokens. The aux loss is the mean
+    over ep, then tp, of each rank's Switch loss over its T_l tokens.
+    With no drop (capacity large enough) out equals moe_ffn's rows.
+
+    Gradients (`launch.mesh`'s collectives): each rank back-propagates
+    its own loss; w_in / w_gate / w_out get their block of the gradient of
+    all ranks' losses, and the router, the shared experts and x get on
+    every TP rank the gradient of their token row's losses."""
+    mesh = M.current_mesh()
+    De, Dt = cfg.ep_size, cfg.tp_size
+    if De <= 0 or Dt <= 0:
+        raise ValueError("set MoEConfig.ep_size/tp_size for shardmap")
+    ep, tp = M.mesh_axis(mesh, cfg.ep_axis), M.mesh_axis(mesh, cfg.tp_axis)
+    if (ep.size, tp.size) != (De, Dt):
+        raise ValueError(f"the mesh's {cfg.ep_axis} x {cfg.tp_axis} is "
+                         f"{ep.size} x {tp.size}, the config says {De} x {Dt}")
+    E = cfg.n_experts
+    T_l, d = x.shape
+    if T_l % Dt or E % De:
+        raise ValueError(f"{T_l} tokens over {Dt} TP ranks, {E} experts "
+                         f"over {De} EP ranks: neither may leave a remainder")
+    T_s = T_l // Dt
+    C_l = capacity(T_s, cfg)
+    act = L.act_fn(cfg.act)
+
+    # 1. routing: local and exact, the router is whole
+    probs, w, eidx = route(params, x, cfg)
+    aux = M.pmean(M.pmean(_aux(probs, eidx, cfg), ep), tp)
+
+    # 2. column c dispatches its token slice
+    x_s, w_s = M.split(x, tp), M.split(w, tp)
+    dp = dispatch(w_s, eidx.narrow(0, tp.index * T_s, T_s), E, C_l)
+
+    # 3. dispatch all_to_all over EP
+    xr = M.all_to_all(_slots(x_s, dp, E, C_l), ep, 0, 1)   # (E_l, De*C_l, d)
+
+    # 4. expert GEMMs: columns hold disjoint token slices, so trade d for
+    # tokens over TP, contract the local d slice, and reduce-scatter each
+    # column's own token block of the full-f result
+    xr = M.all_to_all(xr, tp, 2, 1)                    # (E_l, Dt*C_row, d_l)
+    h = M.psum_scatter(torch.bmm(xr, params["w_in"]), tp, 1)
+    if cfg.gated:
+        h = act(M.psum_scatter(torch.bmm(xr, params["w_gate"]), tp, 1)) * h
+    else:
+        h = act(h)
+
+    # 5. the down-projection: the same trade, f for tokens
+    hh = M.all_to_all(h, tp, 2, 1)                     # (E_l, Dt*C_row, f_l)
+    ye = M.psum_scatter(torch.bmm(hh, params["w_out"]), tp, 1)
+
+    # 6. return all_to_all over EP
+    yr = M.all_to_all(ye, ep, 1, 0).reshape(E * C_l, d)
+
+    # 7. weighted combine, then the token slices gathered over TP
+    out = M.all_gather(_combine(yr, dp, T_s), tp)
+    return _shared(params, x, out, cfg).to(x.dtype), aux

@@ -30,6 +30,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.build import stable_topk_smallest
+from repro_torch.launch.mesh import gather_stack, mesh_axis
 from repro_torch.layers import common as L
 from repro_torch.layers import params as P
 from repro_torch.layers.params import Leaf
@@ -326,8 +327,8 @@ def serve_retrieval(params: dict, batch: dict, cfg: RecsysConfig,
     version on the CPU). shard_topk = S > 1: the (B, V) scores split into
     S chunks of V/S columns, a top-k per chunk, then a merge of the S*k
     (the reference's row-sharded top-k on one card; the same result as the
-    plain top-k). The reference's mesh-bound `serve_retrieval_shardmap`
-    is not ported here.
+    plain top-k). `serve_retrieval_shardmap` is the same merge over a
+    device mesh.
     """
     q = query_vector(params, batch, cfg)                     # (B, D)
     cands = candidate_table(params, cfg)                     # (V, D)
@@ -348,3 +349,39 @@ def serve_retrieval(params: dict, batch: dict, cfg: RecsysConfig,
         return vals, torch.gather(ids_l, 1, pos).to(torch.int32)
     vals, ids = stable_topk_smallest(d, k)
     return vals, ids.to(torch.int32)
+
+
+@torch.no_grad()
+def serve_retrieval_shardmap(params: dict, batch: dict, cfg: RecsysConfig,
+                             mesh, k: int = 100, axis: str = "model",
+                             use_kernel: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact retrieval with the candidate table row-sharded over the mesh
+    axis `axis` (the same on the other axes): rank i of n scores only rows
+    [i*V/n, (i+1)*V/n) of candidate_table() against the query vectors,
+    takes a local top-k, adds its row offset, and only the (n, B, k)
+    candidates are all-gathered and merged. Every rank passes the whole
+    params and batch (query_vector needs the whole table) and gets the
+    same (dists, ids) as serve_retrieval: ties to the lower id.
+    use_kernel: the local distances come from the `batch_dist` kernel."""
+    ax = mesh_axis(mesh, axis)
+    q = query_vector(params, batch, cfg)                     # (B, D)
+    cands = candidate_table(params, cfg)                     # (V, D)
+    V = cands.shape[0]
+    if V % ax.size:
+        raise ValueError(f"{V} candidates do not split over {ax.size} "
+                         f"ranks of {axis!r}")
+    V_l = V // ax.size
+    c_l = cands[ax.index * V_l:(ax.index + 1) * V_l]
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        d = kops.batch_dist(q.contiguous(), c_l.contiguous(), metric="ip")
+    else:
+        d = -(q @ c_l.T)                                     # (B, V_l)
+    vals, ids = stable_topk_smallest(d, k)
+    ids = ids.to(torch.int32) + ax.index * V_l
+    B = q.shape[0]
+    all_v = gather_stack(vals, ax).permute(1, 0, 2).reshape(B, -1)
+    all_i = gather_stack(ids, ax).permute(1, 0, 2).reshape(B, -1)
+    mv, pos = stable_topk_smallest(all_v, k)
+    return mv, torch.gather(all_i, 1, pos)

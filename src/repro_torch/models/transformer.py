@@ -24,9 +24,11 @@ One parameterized implementation:
 Parameters are a nested dict keyed as the reference's pytree (`embed`,
 `layers/*` stacked `(L, ...)`, `ln_f`, `unembed` unless tied), so
 checkpoints and optimizer states carry over key for key;
-`params_from_numpy` carries the reference's weights across. The
-reference's `moe_ffn_shardmap` (`MoEConfig.use_shardmap`) is mesh-bound and
-not ported.
+`params_from_numpy` carries the reference's weights across. With
+`MoEConfig.use_shardmap` the MoE layers run `moe_ffn_shardmap` on the
+ambient device mesh (`launch.mesh.mesh_context`; raises outside one):
+each rank then passes its own token rows and its blocks of the expert
+weights (`layers.moe.local_moe_params` on `params["layers"]["moe"]`).
 """
 from __future__ import annotations
 
@@ -37,10 +39,10 @@ from typing import Optional, Tuple
 import torch
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.configs import NotPortedError
 from repro_torch.layers import common as L
 from repro_torch.layers import params as P
-from repro_torch.layers.moe import MoEConfig, moe_ffn, moe_spec
+from repro_torch.layers.moe import (MoEConfig, moe_ffn, moe_ffn_shardmap,
+                                    moe_spec)
 from repro_torch.layers.params import Leaf
 from repro_torch.train.tree import tree_map
 
@@ -234,13 +236,9 @@ def _ffn(p: dict, hin: torch.Tensor, cfg: LMConfig):
     """(the MLP or MoE output, its aux loss)."""
     if cfg.moe is None:
         return _mlp(p, hin, cfg), torch.zeros((), device=hin.device)
-    if cfg.moe.use_shardmap:
-        raise NotPortedError(
-            "moe_ffn_shardmap (MoEConfig.use_shardmap) is mesh-bound and not "
-            "ported to repro_torch: a multi-card torch.distributed "
-            "counterpart is ROADMAP queue 1 item 2's left-out list")
     B, S, d = hin.shape
-    out, aux = moe_ffn(p["moe"], hin.reshape(B * S, d), cfg.moe)
+    fn = moe_ffn_shardmap if cfg.moe.use_shardmap else moe_ffn
+    out, aux = fn(p["moe"], hin.reshape(B * S, d), cfg.moe)
     return out.reshape(B, S, d), aux
 
 

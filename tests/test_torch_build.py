@@ -33,6 +33,7 @@ from repro_torch.core.convert import from_reference_arrays
 from repro_torch.core import refine as trefine
 from repro_torch.core import reorder as treorder
 from repro_torch.core.index import KBest
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them

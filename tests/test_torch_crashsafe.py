@@ -25,6 +25,7 @@ from repro_torch.core.index import KBest, _meta_path, _npz_path
 from repro_torch.core.persist import IndexCorruptError
 from repro_torch.core.sharded import ShardedKBest
 from repro_torch.serve.faults import InjectedCrash, crash_at, trace_steps
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

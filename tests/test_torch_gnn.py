@@ -25,6 +25,7 @@ from repro_torch import configs as treg
 from repro_torch.data import pipeline as TP
 from repro_torch.models import dimenet as TD
 from repro_torch.train.tree import leaves_with_path, path_key, unflatten
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ import torch
 
 from repro.layers import common as JL
 from repro_torch.layers import common as TL
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -36,6 +36,8 @@ from repro_torch.train import loop as TLOOP
 from repro_torch.train import optimizer as TO
 from repro_torch.train.tree import (leaves_with_path, path_key, to_tensor,
                                     unflatten)
+import torch_mesh_ranks
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -49,6 +51,7 @@ LM_ARCHS = ("qwen2_5_14b", "chatglm3_6b", "gemma_2b", "kimi_k2_1t_a32b",
 # (llama4's), so 2e-5.
 RTOL, ATOL_OF_SCALE = 1e-5, 3e-6
 GRAD_OF_SCALE = 2e-5
+NO_DROP = 64.0                   # a capacity factor at which no token drops
 B, S = 2, 16
 
 
@@ -282,12 +285,59 @@ def test_remat_policies_match():
 
 
 def test_shardmap_dispatch_is_not_ported():
-    cfg = treg.get("llama4_scout_17b_a16e").smoke_config()
+    """`MoEConfig.use_shardmap` runs the model's MoE layers through
+    moe_ffn_shardmap (the name is from before that dispatch was ported):
+    llama4-scout's smoke config on 4 gloo ranks, a (2, 2) mesh (experts
+    over "data", expert widths over "model", batch rows over "data"), at
+    no-drop capacity. Each rank's forward logits and nll equal the
+    one-process model's (use_shardmap=False) on its batch row, and the
+    logits those of the whole batch's forward; its aux is the mean of the
+    rows' (the reference's pmean over the EP axis) and its loss its nll
+    plus that aux."""
+    inp = torch_mesh_ranks.lm_inputs()
+    base = dataclasses.replace(inp["cfg"], moe=dataclasses.replace(
+        inp["cfg"].moe, use_shardmap=False))
+    tp = TT.params_from_numpy(base, inp["params"], device="cpu")
+    toks = inp["tokens"]
+    ranks = torch_mesh_ranks.spawn("lm_shardmap", inp)
+    full, _ = TT.forward(tp, torch.from_numpy(toks[:, :-1]), base)
+    rows = [TT.loss_fn(tp, {"tokens": torch.from_numpy(toks[r:r + 1])},
+                       base)[1] for r in range(2)]
+    aux = float(np.mean([float(m["aux"]) for m in rows]))
+    for rank, out in enumerate(ranks):
+        r = rank // 2
+        logits, _ = TT.forward(tp, torch.from_numpy(toks[r:r + 1, :-1]),
+                               base)
+        _close(torch.from_numpy(out["logits"]), logits)
+        _close(torch.from_numpy(out["logits"]), full[r:r + 1])
+        nll = float(rows[r]["nll"])
+        np.testing.assert_allclose(out["nll"], nll, rtol=RTOL)
+        np.testing.assert_allclose(out["aux"], aux, rtol=RTOL)
+        np.testing.assert_allclose(out["loss"], nll + aux, rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", ["kimi_k2_1t_a32b", "llama4_scout_17b_a16e"])
+def test_moe_prefill_and_decode_match_forward_without_drops(name):
+    """Prefill of 32 tokens, then 16 decode steps, against one forward
+    over the 48: at no-drop capacity the MoE archs' cache path gives the
+    forward's logits (the drift at the default capacity is the drop set,
+    which depends on the number of tokens in a call)."""
+    cfg = treg.get(name).smoke_config()
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, use_shardmap=True, ep_size=2, tp_size=2))
+        cfg.moe, capacity_factor=NO_DROP))
     tp = TT.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(treg.NotPortedError, match="item 2"):
-        TT.forward(tp, torch.zeros((1, 4), dtype=torch.int32), cfg)
+    toks = torch.from_numpy(_tokens(cfg, (B, 48), seed=10))
+    full, _ = TT.forward(tp, toks, cfg)
+    lg, pc = TT.prefill(tp, toks[:, :32], cfg)
+    cache = TT.init_cache(cfg, B, 48, dtype=torch.float32, device="cpu")
+    cache["k"][:, :, :32] = pc["k"]
+    cache["v"][:, :, :32] = pc["v"]
+    cache["len"].fill_(32)
+    steps = [lg]
+    for s in range(32, 48):
+        lg, cache = TT.decode_step(tp, cache, toks[:, s:s + 1], cfg)
+        steps.append(lg)
+    _close(torch.cat(steps, dim=1), full[:, 31:], of_scale=1e-6)
 
 
 # --------------------------------------------------------------------------
@@ -342,16 +392,21 @@ TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
             d_ff=128, vocab=128, dtype="float32", remat=False)
 
 
-def test_five_steps_match_reference_trainer(tmp_path):
-    """`tests/test_train.py`'s TINY LM, its lr and its stream: five AdamW
-    steps of the port's Trainer give the reference Trainer's losses within
-    atol=1e-5, its moments within the deepfm case's bound, and its params
-    within a tenth of lr. Adam's update g / (|g| + eps) turns a gradient's
-    absolute error d into lr * d / eps where |g| is near eps = 1e-8: one
-    entry of w_out (|g| ~ 1e-8, its leaf's largest 8e-3) moves 3.75e-5
-    apart in the first step, an f32 difference of 5e-8 of the leaf's
-    scale."""
-    jcfg, cfg = JT.LMConfig(**TINY), TT.LMConfig(**TINY)
+@pytest.mark.parametrize("name", ["tiny", "llama4_scout_17b_a16e"])
+def test_five_steps_match_reference_trainer(tmp_path, name):
+    """`tests/test_train.py`'s TINY LM (and llama4-scout's f32 smoke
+    config, an MoE), its lr and its stream: five AdamW steps of the port's
+    Trainer give the reference Trainer's losses within atol=1e-5, its
+    moments within the deepfm case's bound, and its params within a tenth
+    of lr. Adam's update g / (|g| + eps) turns a gradient's absolute error
+    d into lr * d / eps where |g| is near eps = 1e-8: one entry of w_out
+    (|g| ~ 1e-8, its leaf's largest 8e-3) moves 3.75e-5 apart in the
+    first step, an f32 difference of 5e-8 of the leaf's scale."""
+    if name == "tiny":
+        jcfg, cfg = JT.LMConfig(**TINY), TT.LMConfig(**TINY)
+    else:
+        jcfg, cfg = jreg.get(name).smoke_config(), \
+            treg.get(name).smoke_config()
     jp, tp = _carry(cfg, jcfg)
     n = 5
     jtr = JLOOP.Trainer(lambda p, b: JT.loss_fn(p, b, jcfg),
@@ -359,13 +414,13 @@ def test_five_steps_match_reference_trainer(tmp_path):
                         JLOOP.TrainerConfig(ckpt_dir=str(tmp_path / "j"),
                                             ckpt_every=100, log_every=1),
                         donate=False)
-    jout = jtr.fit(jp, JP.lm_batches(128, 8, 32), n_steps=n)
+    jout = jtr.fit(jp, JP.lm_batches(cfg.vocab, 8, 32), n_steps=n)
     ttr = TLOOP.Trainer(lambda p, b: TT.loss_fn(p, b, cfg),
                         TO.OptConfig(lr=1e-3),
                         TLOOP.TrainerConfig(ckpt_dir=str(tmp_path / "t"),
                                             ckpt_every=100, log_every=1),
                         device="cpu")
-    tout = ttr.fit(tp, TP.lm_batches(128, 8, 32), n_steps=n)
+    tout = ttr.fit(tp, TP.lm_batches(cfg.vocab, 8, 32), n_steps=n)
     np.testing.assert_allclose([h["loss"] for h in tout["history"]],
                                [h["loss"] for h in jout["history"]],
                                rtol=0, atol=1e-5)

@@ -19,6 +19,7 @@ import torch
 
 from repro.layers import moe as JMOE
 from repro_torch.layers import moe as TMOE
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

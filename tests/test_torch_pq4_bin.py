@@ -27,6 +27,7 @@ from repro_torch.core import quantize as tqz
 from repro_torch.core.types import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them

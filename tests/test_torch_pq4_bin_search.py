@@ -45,6 +45,7 @@ from repro_torch.core.convert import from_reference_arrays
 from repro_torch.core.index import KBest
 from repro_torch.core.types import SearchConfig
 from test_torch_parity import assert_same_ranking
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them

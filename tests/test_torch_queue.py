@@ -16,6 +16,7 @@ import torch
 
 from repro.core import queue as rq
 from repro_torch.core import queue as tq
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 # parallel test workers share the cores: one torch thread each keeps the
 # many small eager ops from oversubscribing them

@@ -26,6 +26,7 @@ from repro_torch import configs as treg
 from repro_torch.models import recsys as TR
 from repro_torch.train.tree import leaves_with_path, path_key, unflatten
 from test_torch_parity import assert_same_ranking
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

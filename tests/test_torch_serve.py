@@ -46,6 +46,7 @@ from repro_torch.serve import (DegradePolicy, FaultInjector, LatencyModel,
                                bucket_ladder, percentiles, serve_loop)
 from repro_torch.serve import scheduler as tsched
 from test_torch_parity import assert_same_ranking
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -38,6 +38,7 @@ from repro_torch.core.index import KBest, _config_from_dict
 from repro_torch.core.sharded import (ShardedKBest, merge_stats,
                                       pad_to_shard_boundary, shard_bounds)
 from test_torch_parity import TOL, assert_same_ranking
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -41,6 +41,7 @@ from repro_torch.train import loop as TLOOP
 from repro_torch.train import optimizer as TO
 from repro_torch.train.tree import (leaves, leaves_with_path, path_key,
                                     tree_map)
+from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
