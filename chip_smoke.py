@@ -120,7 +120,15 @@ Phases:
      table at full width, 1 and 512 queries, against serve_retrieval;
      (c) moe_ffn_shardmap at ep = tp = 1 against moe_ffn: both MoE archs'
      f32 smoke layers (forward, aux, every gradient) and one llama4-scout
-     layer at full width in bf16.
+     layer at full width in bf16;
+ 14. the shape layer (sharding/rules.py, launch/specs.py,
+     launch/dryrun.py), once phase 13's group is gone: (a) the dry-run of
+     the 40 (arch x shape) cells on both production meshes (256 and 512
+     ranks over a `fake` process group, each step once on meta tensors)
+     in two subprocesses at once, one a mesh, all 80 records ok; (b) the per-rank shards of the
+     record with the most per-rank argument bytes below half the card's
+     free memory allocated on the card, memory_allocated held to the
+     record's bytes. No kernel launches.
 
 Every check that fails raises, so the script exits non-zero; without a
 CUDA device it exits non-zero before printing any result. The last line of
@@ -131,6 +139,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -3308,6 +3317,124 @@ def phase_mesh(idx, ds):
         raise AssertionError("phase mesh: " + "; ".join(fails))
 
 
+# --------------------------------------------------------------------------
+# phase 14
+# --------------------------------------------------------------------------
+def dryrun_records(since: float) -> list:
+    """The 80 baseline records of the dry-run (40 cells x 2 meshes), each
+    written after `since`."""
+    from repro_torch import configs as reg
+    from repro_torch.launch import dryrun
+    recs = []
+    for arch, shape in reg.all_cells():
+        for mesh_name in ("pod16x16", "pod2x16x16"):
+            path = dryrun.ART_DIR / f"{arch}__{shape}__{mesh_name}.json"
+            assert path.stat().st_mtime >= since, f"{path} is stale"
+            rec = json.loads(path.read_text())
+            assert rec["ok"] and rec["variant"] == "baseline", rec
+            recs.append(rec)
+    return recs
+
+
+def alloc_slack(nbytes: int) -> int:
+    """The most that PyTorch's caching allocator adds to memory_allocated
+    for one tensor of `nbytes`: sizes round up to 512 B, and a block of
+    the large pool (over 1 MiB) is split off its segment only when more
+    than 1 MiB would be left, so up to 1 MiB of the segment's tail stays
+    in the block."""
+    return 511 if nbytes <= 1 << 20 else (1 << 20) + 511
+
+
+def phase_shapes():
+    """phase 14: the shape layer (sharding/rules, launch/specs,
+    launch/dryrun) on the card, run once phase 13's NCCL group is gone.
+    (a) the dry-run of the 40 cells on both production meshes, on its
+    default device: `python -m repro_torch.launch.dryrun --all` and
+    `--all --multi-pod` in two subprocesses at once (the 80 records of
+    `--all --both-meshes`, which took 63.1 s in one process on the
+    card's host, over the phase's 60 s), each mesh on the card over a
+    `fake` process group, each step run once on meta tensors; every one
+    of the 80 records must say ok.
+    (b) The record with the largest per-rank argument bytes below half the
+    card's free memory: that cell's per-rank shards allocated on the card
+    with `torch.empty`; `memory_allocated` must grow by at least the
+    record's bytes and by at most the allocator's rounding a leaf
+    (`alloc_slack`), and its requested bytes by exactly the record's. Reports how many of the 80 cells' per-rank argument bytes
+    fit in the card's total memory (temporaries not counted). Launches no
+    kernel. Any failure raises."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import build_cell
+    assert not dist.is_initialized(), "phase 13's process group is alive"
+    rep = REPORT["shapes"] = {}
+    counts = ops.launch_counts()
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all"] + (
+        [] if DEVICE == "cuda" else ["--device", DEVICE])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(cmd + flag, cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for flag in ([], ["--multi-pod"])]
+    outs = [p.communicate(timeout=600) for p in procs]
+    rep["dryrun_s"] = time.time() - t0
+    ok_lines = [line for out, _ in outs for line in out.splitlines()
+                if line.startswith("[ok]")]
+    rcs = [p.returncode for p in procs]
+    log(f"[shapes] (a) dryrun --all on each production mesh: "
+        f"{len(ok_lines)} [ok] lines, exits {rcs}, {rep['dryrun_s']:.1f} s")
+    assert rcs == [0, 0] and len(ok_lines) == 80, \
+        "".join(out[-2000:] + err[-2000:] for out, err in outs)
+    recs = dryrun_records(t0 - 1)
+    rep["cell_s"] = {f"{r['arch']} {r['shape']} {r['mesh']}": r["seconds"]
+                     for r in recs}
+
+    free, total = torch.cuda.mem_get_info()
+    nbytes = [r["memory_analysis"]["argument_bytes"] for r in recs]
+    pick = max((r for r, b in zip(recs, nbytes) if b < free / 2),
+               key=lambda r: r["memory_analysis"]["argument_bytes"])
+    want = pick["memory_analysis"]["argument_bytes"]
+    with dryrun.production_mesh(pick["mesh"] == "pod2x16x16",
+                                DEVICE) as mesh:
+        cell = build_cell(pick["arch"], pick["shape"], mesh)
+        shards = [(sh.shard_shape(x.shape), x.dtype)
+                  for x, sh in dryrun.argument_leaves(cell)]
+        assert dryrun.argument_bytes(cell) == want
+    leaf_bytes = [math.prod(shape) * dt.itemsize for shape, dt in shards]
+    slack = sum(alloc_slack(b) for b in leaf_bytes)
+
+    def stats():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    before = stats()
+    bufs = [torch.empty(shape, dtype=dt, device=DEVICE)
+            for shape, dt in shards]
+    after = stats()
+    grown, requested = after[0] - before[0], after[1] - before[1]
+    del bufs
+    free_card()
+    n_fit = sum(b <= total for b in nbytes)
+    rep["allocated"] = dict(
+        cell=f"{pick['arch']} {pick['shape']} {pick['mesh']}",
+        argument_bytes=want, leaves=len(shards), grown_bytes=grown,
+        requested_bytes=requested, slack_bytes=slack, free_bytes=free,
+        total_bytes=total, cells_fitting=n_fit, card=REPORT.get("card"))
+    log(f"[shapes] (b) {pick['arch']} {pick['shape']} on {pick['mesh']}: "
+        f"per-rank arguments {want / 2**30:.3f} GiB in {len(shards)} "
+        f"leaves; the allocator's requested bytes grew {requested:,} B, "
+        f"memory_allocated {grown:,} B (rounding allowed: {slack:,} B); "
+        f"{n_fit} of {len(recs)} cells' per-rank argument bytes fit in the "
+        f"card's {total / 2**30:.1f} GiB ({REPORT.get('card')}; "
+        f"temporaries not counted)")
+    assert requested == want, rep["allocated"]
+    assert want <= grown <= want + slack, rep["allocated"]
+    assert ops.launch_counts() == counts, "phase 14 launched a kernel"
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3347,6 +3474,7 @@ def main() -> int:
     timed("mesh", phase_mesh, idx, ds)
     del idx
     torch.cuda.empty_cache()
+    timed("shapes", phase_shapes)
     timed("recsys", phase_recsys)
     timed("models", phase_models)
     path_counts = dict(main=counts, quant=qcounts, pq4_bin=bcounts,

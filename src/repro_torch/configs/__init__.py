@@ -48,3 +48,11 @@ def get(arch: str):
     name = _ALIAS.get(arch, arch.replace("-", "_").replace(".", "_"))
     assert name in ARCHS, f"unknown arch {arch}; options: {ARCHS}"
     return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def all_cells():
+    """All 40 (arch, shape) dry-run cells, in the reference's order."""
+    for a in ARCHS:
+        mod = get(a)
+        for s in mod.SHAPES:
+            yield a, s

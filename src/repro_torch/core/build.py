@@ -36,8 +36,16 @@ def stable_topk_smallest(d: torch.Tensor, k: int
     A plain top-(k+1) on the floats is already the answer for every row
     whose k+1 smallest values are all distinct (the set and its order are
     then unique); only rows with a tie among them are redone on the
-    distinct (distance, column) keys."""
+    distinct (distance, column) keys.
+
+    A `meta` input (shapes only, no values) gets a plain top-k in the
+    result's shapes and dtypes, with no tie repair: `torch.nonzero` has no
+    meta version. The branch exists only so that the shape layer
+    (`launch/specs.py`) can run the retrieval steps; on every real device
+    nothing changes."""
     n = d.shape[1]
+    if d.device.type == "meta":
+        return torch.topk(d, min(k, n), dim=1, largest=False, sorted=True)
     vals, idx = torch.topk(d, min(k + 1, n), dim=1, largest=False,
                            sorted=True)
     tied = (vals[:, 1:] == vals[:, :-1]).any(dim=1)

@@ -47,6 +47,22 @@ class SimulatedFailure(RuntimeError):
     pass
 
 
+def train_step(loss_fn: Callable, opt_cfg: OptConfig, params, opt_state,
+               batch, donate: bool = False):
+    """One autograd pass of loss_fn(params, batch) -> (loss, metrics) and
+    one `opt_update`: (new params, new opt state, metrics as tensors)."""
+    req = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, metrics = loss_fn(unflatten(params, req), batch)
+    grads = torch.autograd.grad(loss, req)
+    with torch.no_grad():
+        new_params, new_state, gnorm = opt_update(
+            unflatten(params, grads), opt_state,
+            unflatten(params, [p.detach() for p in req]), opt_cfg,
+            donate=donate)
+    metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+    return new_params, new_state, metrics
+
+
 class Trainer:
     def __init__(self, loss_fn: Callable, opt_cfg: OptConfig,
                  cfg: TrainerConfig, device=None, donate: bool = False):
@@ -63,16 +79,8 @@ class Trainer:
 
     def step_fn(self, params, opt_state, batch):
         """One step: (new params, new opt state, metrics as tensors)."""
-        req = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss, metrics = self.loss_fn(unflatten(params, req), batch)
-        grads = torch.autograd.grad(loss, req)
-        with torch.no_grad():
-            new_params, new_state, gnorm = opt_update(
-                unflatten(params, grads), opt_state,
-                unflatten(params, [p.detach() for p in req]), self.opt_cfg,
-                donate=self.donate)
-        metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm)
-        return new_params, new_state, metrics
+        return train_step(self.loss_fn, self.opt_cfg, params, opt_state,
+                          batch, donate=self.donate)
 
     # ------------------------------------------------------------- signals
     def install_signal_handler(self):

@@ -43,6 +43,11 @@ def leaves(tree, is_leaf: Optional[Callable] = None) -> list:
     return [leaf for _, leaf in leaves_with_path(tree, is_leaf)]
 
 
+def tree_map_with_path(fn: Callable, tree):
+    """fn(path, leaf) over the leaves of `tree`, in its structure."""
+    return unflatten(tree, [fn(p, x) for p, x in leaves_with_path(tree)])
+
+
 def path_key(path: Tuple) -> str:
     return "/".join(str(p) for p in path)
 
