@@ -30,6 +30,11 @@ allowlist is the input to CUDA-graph capture of the search (ROADMAP queue
 1 item 2). A new sync fails the lint, and so does an entry that matches
 no sync any more. Entries are keyed by (file, function, source of the
 sync), not by line, so an edit elsewhere in the file keeps them.
+
+This check lists the syncs statically; at run time the span recorder
+(`repro_torch/spans.py`) counts them: each of the two syncs ALLOWED
+holds adds one `sync` count where it runs, and no other site does
+(`tests/test_torch_spans.py` holds the counts to `SearchStats`).
 """
 from __future__ import annotations
 

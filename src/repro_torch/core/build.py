@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.distance import pairwise
 
 
@@ -50,13 +51,15 @@ def stable_topk_smallest(d: torch.Tensor, k: int
                            sorted=True)
     tied = (vals[:, 1:] == vals[:, :-1]).any(dim=1)
     vals, idx = vals[:, :k], idx[:, :k]
-    rows = torch.nonzero(tied).flatten()
-    if len(rows):
-        keys, _ = torch.topk(sortable_keys(d[rows]), k, dim=1,
-                             largest=False, sorted=True)
-        ki = keys & 0xFFFFFFFF
-        idx[rows] = ki
-        vals[rows] = torch.gather(d[rows], 1, ki)
+    with spans.span("topk.tie_sync"):
+        spans.count("sync")
+        rows = torch.nonzero(tied).flatten()
+        if len(rows):
+            keys, _ = torch.topk(sortable_keys(d[rows]), k, dim=1,
+                                 largest=False, sorted=True)
+            ki = keys & 0xFFFFFFFF
+            idx[rows] = ki
+            vals[rows] = torch.gather(d[rows], 1, ki)
     return vals, idx
 
 

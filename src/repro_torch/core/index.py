@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import build as build_mod
 from repro_torch.core import ivf as ivf_mod
 from repro_torch.core import persist
@@ -215,9 +216,11 @@ class KBest:
         tensors on the index's device."""
         assert self.db is not None, "call add() first"
         scfg = self._resolve_cfg(k, search_cfg)
-        dists, ids, stats = self._search_impl(
-            prep_queries(self.config, queries, self.device), scfg,
-            valid_mask=None)
+        with spans.span("search", family=self.config.index_type,
+                        Q=len(queries), k=scfg.k):
+            with spans.span("search.upload"):
+                q = prep_queries(self.config, queries, self.device)
+            dists, ids, stats = self._search_impl(q, scfg, valid_mask=None)
         return (dists, ids, stats) if with_stats else (dists, ids)
 
     def search_padded(self, queries, valid_mask, k: Optional[int] = None,
@@ -229,12 +232,14 @@ class KBest:
         `search` of the same queries."""
         assert self.db is not None, "call add() first"
         scfg = self._resolve_cfg(k, search_cfg)
-        vm = torch.as_tensor(np.asarray(valid_mask, dtype=bool),
-                             device=self.device)
-        dists, ids, stats = self._search_impl(
-            prep_queries(self.config, queries, self.device), scfg,
-            valid_mask=vm)
-        dists, ids, stats = mask_padded_lanes(vm, dists, ids, stats)
+        with spans.span("search", family=self.config.index_type,
+                        Q=len(queries), k=scfg.k):
+            with spans.span("search.upload"):
+                vm = torch.as_tensor(np.asarray(valid_mask, dtype=bool),
+                                     device=self.device)
+                q = prep_queries(self.config, queries, self.device)
+            dists, ids, stats = self._search_impl(q, scfg, valid_mask=vm)
+            dists, ids, stats = mask_padded_lanes(vm, dists, ids, stats)
         return (dists, ids, stats) if with_stats else (dists, ids)
 
     def _resolve_cfg(self, k: Optional[int],
@@ -270,16 +275,18 @@ class KBest:
             rerank = self.config.quant.rerank
             if kind == "bin" and rerank == 0:
                 rerank = scfg.rescore_factor * scfg.k
-            dists, ids, n_exact = self._rerank(q, ids, scfg.k, rerank,
-                                               scfg.dist_impl)
+            with spans.span("search.rerank"):
+                dists, ids, n_exact = self._rerank(q, ids, scfg.k, rerank,
+                                                   scfg.dist_impl)
             # n_dist counts the exact re-rank distances too, as the
             # reference does for every quantized family
             stats = stats._replace(n_dist=stats.n_dist + n_exact)
         # translate internal (post-reorder) ids back to the user's add() ids
         if self._order_t is not None:
-            ids = torch.where(ids >= 0,
-                              self._order_t[torch.clamp(ids, min=0).long()],
-                              torch.full_like(ids, -1))
+            with spans.span("search.ids"):
+                ids = torch.where(
+                    ids >= 0, self._order_t[torch.clamp(ids, min=0).long()],
+                    torch.full_like(ids, -1))
         return dists, ids, stats
 
     def _search_ivf(self, q: torch.Tensor, scfg: SearchConfig):
@@ -297,8 +304,9 @@ class KBest:
             rerank = scfg.rescore_factor * scfg.k
         else:
             rerank = quant.rerank if quant.rerank > 0 else cand.shape[1]
-        dists, ids, n_exact = self._rerank(q, cand, scfg.k, rerank,
-                                           scfg.dist_impl)
+        with spans.span("search.rerank"):
+            dists, ids, n_exact = self._rerank(q, cand, scfg.k, rerank,
+                                               scfg.dist_impl)
         Q, dev = q.shape[0], q.device
         stats = search_mod.SearchStats(
             n_hops=torch.full((Q,), min(scfg.nprobe, self.ivf.nlist),

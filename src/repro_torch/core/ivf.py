@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import quantize as qz
 from repro_torch.core.build import stable_topk_smallest
 from repro_torch.core.distance import pairwise
@@ -194,11 +195,13 @@ def _merge(pd: torch.Tensor, pi: torch.Tensor, L: int
     min(L, P*Lp) of their concatenation (earlier probe first on ties), ids
     -1 where the distance is not finite."""
     Q = pd.shape[0]
-    flat_d, flat_i = pd.reshape(Q, -1), pi.reshape(Q, -1)
-    k = min(L, flat_d.shape[1])
-    vals, pos = stable_topk_smallest(flat_d, k)
-    ids = torch.gather(flat_i, 1, pos)
-    return vals, torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+    with spans.span("ivf.merge"):
+        flat_d, flat_i = pd.reshape(Q, -1), pi.reshape(Q, -1)
+        k = min(L, flat_d.shape[1])
+        vals, pos = stable_topk_smallest(flat_d, k)
+        ids = torch.gather(flat_i, 1, pos)
+        return vals, torch.where(torch.isfinite(vals), ids,
+                                 torch.full_like(ids, -1))
 
 
 def scan_lists(state: IVFState, luts: torch.Tensor, probes: torch.Tensor,
@@ -208,16 +211,18 @@ def scan_lists(state: IVFState, luts: torch.Tensor, probes: torch.Tensor,
     """List scan with per-list top-L, then the global merge. Returns
     (dists (Q, L) ascending approximate distances, ids (Q, L), -1 pad)."""
     Lp = min(L, state.max_len)
-    if impl == "kernel":
-        from repro_torch.kernels import ops as kops
-        scan = kops.pq4_ivf_scan if state.packed else kops.ivf_scan
-        pd, pi = scan(luts.contiguous(), state.list_codes, state.list_ids,
-                      probes, L=Lp)
-    else:
-        scan = kref.pq4_ivf_scan_ref if state.packed else kref.ivf_scan_ref
-        pd, pi = scan(luts, state.list_codes, state.list_ids, probes, Lp)
-    if bias is not None:
-        pd = pd + bias[:, :, None]      # +inf padding stays +inf
+    with spans.span("ivf.scan"):
+        if impl == "kernel":
+            from repro_torch.kernels import ops as kops
+            scan = kops.pq4_ivf_scan if state.packed else kops.ivf_scan
+            pd, pi = scan(luts.contiguous(), state.list_codes,
+                          state.list_ids, probes, L=Lp)
+        else:
+            scan = kref.pq4_ivf_scan_ref if state.packed \
+                else kref.ivf_scan_ref
+            pd, pi = scan(luts, state.list_codes, state.list_ids, probes, Lp)
+        if bias is not None:
+            pd = pd + bias[:, :, None]      # +inf padding stays +inf
     return _merge(pd, pi, L)
 
 
@@ -226,13 +231,14 @@ def scan_bin_lists(state: IVFState, qcodes: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hamming twin of scan_lists over the probed sign-word lists."""
     Lp = min(L, state.max_len)
-    if impl == "kernel":
-        from repro_torch.kernels import ops as kops
-        pd, pi = kops.bin_ivf_scan(qcodes, state.list_codes, state.list_ids,
-                                   probes, L=Lp)
-    else:
-        pd, pi = kref.bin_ivf_scan_ref(qcodes, state.list_codes,
-                                       state.list_ids, probes, Lp)
+    with spans.span("ivf.scan"):
+        if impl == "kernel":
+            from repro_torch.kernels import ops as kops
+            pd, pi = kops.bin_ivf_scan(qcodes, state.list_codes,
+                                       state.list_ids, probes, L=Lp)
+        else:
+            pd, pi = kref.bin_ivf_scan_ref(qcodes, state.list_codes,
+                                           state.list_ids, probes, Lp)
     return _merge(pd, pi, L)
 
 
@@ -244,12 +250,15 @@ def search_ivf(state: IVFState, q: torch.Tensor, nprobe: int, L: int,
     candidates exactly and derives the scan's stats from the probes. Only
     (L, nprobe, dist_impl, quant) shape this path: the traversal's knobs
     (beam_width, batch_B, visited_mode) do not reach it."""
-    probes = select_probes(state, q, nprobe, metric)
+    with spans.span("ivf.probe"):
+        probes = select_probes(state, q, nprobe, metric)
     if state.bin is not None:
-        qcodes = qz.bin_query_codes(state.bin, q)
+        with spans.span("ivf.luts"):
+            qcodes = qz.bin_query_codes(state.bin, q)
         dists, ids = scan_bin_lists(state, qcodes, probes, L, impl)
         return dists, ids, probes
-    luts, bias = query_luts(state, q, probes, metric, lut_u8=lut_u8)
+    with spans.span("ivf.luts"):
+        luts, bias = query_luts(state, q, probes, metric, lut_u8=lut_u8)
     dists, ids = scan_lists(state, luts, probes, L, impl, bias=bias)
     return dists, ids, probes
 

@@ -6,7 +6,9 @@ iteration expands the top-W unvisited candidates of every active query and
 scores all W*M gathered neighbors in one (Q, W*M) distance step. Where the
 reference runs a `jax.lax.while_loop`, this runs a host `while` over
 eagerly launched tensor ops, with one device sync per iteration to read
-the loop condition `any(active) & it < hops_bound`.
+the loop condition `any(active) & it < hops_bound`. Each stage runs in a
+span of `repro_torch.spans` (a no-op unless the recorder is on), and each
+exit check counts one `sync`.
 
 Visited-set semantics: "bitmap" keeps a packed per-query bitmap of the
 nodes whose distance was computed (32 bits per int64 word, so the
@@ -19,6 +21,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import queue as qmod
 from repro_torch.core.types import SearchConfig
 
@@ -100,86 +103,103 @@ def search(graph: torch.Tensor, queries: torch.Tensor,
     inf = float("inf")
 
     # ---- init: seed the queue with the entry points ----------------------
-    e_ids = entry_ids.to(device=dev, dtype=torch.int32)[None, :].expand(
-        Q, entry_ids.shape[0]).contiguous()
-    e_dists = dist_fn(queries, e_ids)
-    queue, _, _ = qmod.merge_insert(qmod.init_queue(Q, L, dev), e_dists, e_ids)
-    bitmap = torch.zeros((Q, nwords), dtype=torch.int64, device=dev)
-    if cfg.visited_mode == "bitmap":
-        bitmap = _bitmap_set(bitmap, e_ids)
+    with spans.span("search.seed"):
+        e_ids = entry_ids.to(device=dev, dtype=torch.int32)[None, :].expand(
+            Q, entry_ids.shape[0]).contiguous()
+        e_dists = dist_fn(queries, e_ids)
+        queue, _, _ = qmod.merge_insert(qmod.init_queue(Q, L, dev), e_dists,
+                                        e_ids)
+        bitmap = torch.zeros((Q, nwords), dtype=torch.int64, device=dev)
+        if cfg.visited_mode == "bitmap":
+            bitmap = _bitmap_set(bitmap, e_ids)
 
-    # seed distances count toward n_dist, on valid lanes only
-    active = (torch.ones((Q,), dtype=torch.bool, device=dev)
-              if valid_mask is None else valid_mask.to(dev).bool())
-    ndist = torch.where(active, torch.sum(e_ids >= 0, dim=1),
-                        torch.zeros((), dtype=torch.int64, device=dev)
-                        ).to(torch.int32)
-    et_ctr = torch.zeros((Q,), dtype=torch.int32, device=dev)
-    fired = torch.zeros((Q,), dtype=torch.bool, device=dev)
-    hops = torch.zeros((Q,), dtype=torch.int32, device=dev)
-    rows = torch.arange(Q, device=dev)[:, None]
+        # seed distances count toward n_dist, on valid lanes only
+        active = (torch.ones((Q,), dtype=torch.bool, device=dev)
+                  if valid_mask is None else valid_mask.to(dev).bool())
+        ndist = torch.where(active, torch.sum(e_ids >= 0, dim=1),
+                            torch.zeros((), dtype=torch.int64, device=dev)
+                            ).to(torch.int32)
+        et_ctr = torch.zeros((Q,), dtype=torch.int32, device=dev)
+        fired = torch.zeros((Q,), dtype=torch.bool, device=dev)
+        hops = torch.zeros((Q,), dtype=torch.int32, device=dev)
+        rows = torch.arange(Q, device=dev)[:, None]
     it = 0
 
-    while it < cfg.hops_bound and bool(active.any()):
-        # the W closest unvisited candidates per lane
-        idxs, has = qmod.pick_top_w(queue, W)
-        exp_w = active[:, None] & has                       # (Q, W)
-        any_has = has.any(dim=1)
-        exp_any = active & any_has
-        v = torch.where(exp_w, queue.ids[rows, idxs], torch.full_like(
-            queue.ids[rows, idxs], -1))
-        queue = qmod.mark_visited_many(queue, idxs, exp_w)
+    while it < cfg.hops_bound:
+        # the loop's exit: the one host sync of an iteration
+        with spans.span("search.exit_sync"):
+            spans.count("sync")
+            go = bool(active.any())
+        if not go:
+            break
+        with spans.span("search.iter"):
+            # the W closest unvisited candidates per lane
+            idxs, has = qmod.pick_top_w(queue, W)
+            exp_w = active[:, None] & has                       # (Q, W)
+            any_has = has.any(dim=1)
+            exp_any = active & any_has
+            v = torch.where(exp_w, queue.ids[rows, idxs], torch.full_like(
+                queue.ids[rows, idxs], -1))
+            queue = qmod.mark_visited_many(queue, idxs, exp_w)
 
-        # all W neighbor lists at once, deduped in flat beam order
-        nbrs = torch.where(v[..., None] >= 0,
-                           graph[torch.clamp(v, min=0).long()],
-                           torch.full((1, 1, 1), -1, dtype=graph.dtype,
-                                      device=dev))
-        flat = qmod.dedupe_ids(nbrs.reshape(Q, W * M))
+            with spans.span("search.iter.filter"):
+                # all W neighbor lists at once, deduped in flat beam order
+                nbrs = torch.where(v[..., None] >= 0,
+                                   graph[torch.clamp(v, min=0).long()],
+                                   torch.full((1, 1, 1), -1,
+                                              dtype=graph.dtype, device=dev))
+                flat = qmod.dedupe_ids(nbrs.reshape(Q, W * M))
 
-        if cfg.visited_mode == "bitmap":
-            seen = _bitmap_test(bitmap, flat)
-            flat = torch.where(seen, torch.full_like(flat, -1), flat)
-            bitmap = _bitmap_set_raw(bitmap, flat)
+                if cfg.visited_mode == "bitmap":
+                    seen = _bitmap_test(bitmap, flat)
+                    flat = torch.where(seen, torch.full_like(flat, -1), flat)
+                    bitmap = _bitmap_set_raw(bitmap, flat)
 
-        n_new = torch.sum(flat >= 0, dim=1).to(torch.int32)
+                n_new = torch.sum(flat >= 0, dim=1).to(torch.int32)
 
-        # candidates already in the queue are masked BEFORE the distance
-        # step (the merge would discard them; the fused step requires it)
-        flat = torch.where(qmod.in_queue_mask(queue, flat),
-                           torch.full_like(flat, -1), flat).contiguous()
+                # candidates already in the queue are masked BEFORE the
+                # distance step (the merge would discard them; the fused
+                # step requires it)
+                flat = torch.where(qmod.in_queue_mask(queue, flat),
+                                   torch.full_like(flat, -1),
+                                   flat).contiguous()
 
-        if use_fused:
-            sd, si, bests, ties = expand_fn(queries, flat)
-            merged = qmod.merge_sorted_runs(queue, sd, si)
-            ranks = qmod.block_ranks(queue, sd, bests, ties)
-        else:
-            nd = _dist_chunked(dist_fn, queries, flat, cfg.batch_B)
-            nd = torch.where(flat >= 0, nd, torch.full_like(nd, inf))
-            merged, ranks = qmod.merge_expand(queue, nd, flat, W)
-        sel = exp_any[:, None]
-        queue = qmod.Queue(torch.where(sel, merged.dists, queue.dists),
-                           torch.where(sel, merged.ids, queue.ids),
-                           torch.where(sel, merged.visited, queue.visited))
+            with spans.span("search.iter.expand"):
+                if use_fused:
+                    sd, si, bests, ties = expand_fn(queries, flat)
+                    merged = qmod.merge_sorted_runs(queue, sd, si)
+                    ranks = qmod.block_ranks(queue, sd, bests, ties)
+                else:
+                    nd = _dist_chunked(dist_fn, queries, flat, cfg.batch_B)
+                    nd = torch.where(flat >= 0, nd, torch.full_like(nd, inf))
+                    merged, ranks = qmod.merge_expand(queue, nd, flat, W)
+                sel = exp_any[:, None]
+                queue = qmod.Queue(
+                    torch.where(sel, merged.dists, queue.dists),
+                    torch.where(sel, merged.ids, queue.ids),
+                    torch.where(sel, merged.visited, queue.visited))
 
-        # early termination, Eq. 3: per expansion, in beam order
-        beyond = ranks > t_pos
-        for w in range(W):
-            ex = exp_w[:, w]
-            et_ctr = torch.where(ex, torch.where(beyond[:, w], et_ctr + 1,
-                                                 torch.zeros_like(et_ctr)),
-                                 et_ctr)
-            if cfg.early_term:
-                fired = fired | (ex & (et_ctr >= cfg.et_patience))
+            with spans.span("search.iter.et"):
+                # early termination, Eq. 3: per expansion, in beam order
+                beyond = ranks > t_pos
+                for w in range(W):
+                    ex = exp_w[:, w]
+                    et_ctr = torch.where(
+                        ex, torch.where(beyond[:, w], et_ctr + 1,
+                                        torch.zeros_like(et_ctr)), et_ctr)
+                    if cfg.early_term:
+                        fired = fired | (ex & (et_ctr >= cfg.et_patience))
 
-        hops = hops + exp_w.sum(dim=1).to(torch.int32)
-        ndist = ndist + torch.where(exp_any, n_new, torch.zeros_like(n_new))
-        active = active & any_has & ~fired & (hops < cfg.hops_bound)
-        it += 1
+                hops = hops + exp_w.sum(dim=1).to(torch.int32)
+                ndist = ndist + torch.where(exp_any, n_new,
+                                            torch.zeros_like(n_new))
+                active = active & any_has & ~fired & (hops < cfg.hops_bound)
+            it += 1
 
-    dists_k, ids_k = qmod.topk(queue, k)
-    stats = SearchStats(hops, ndist, fired,
-                        torch.tensor(it, dtype=torch.int32))
+    with spans.span("search.topk"):
+        dists_k, ids_k = qmod.topk(queue, k)
+        stats = SearchStats(hops, ndist, fired,
+                            torch.tensor(it, dtype=torch.int32))
     return dists_k, ids_k, stats
 
 

@@ -32,7 +32,6 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-build_seconds: float = 0.0        # wall time of the last build_all()
 build_logs: Dict[str, str] = {}   # nvcc output per source (-Xptxas -v)
 
 
@@ -64,7 +63,6 @@ def _lib_path(name: str) -> Path:
 def build_all() -> float:
     """Compile every source whose library is missing, all at once; returns
     the wall seconds spent (0 when everything was built already)."""
-    global build_seconds
     todo = [n for n in SOURCES if not _lib_path(n).exists()]
     t0 = time.perf_counter()
     if todo:
@@ -88,8 +86,7 @@ def build_all() -> float:
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))
-    build_seconds = time.perf_counter() - t0
-    return build_seconds
+    return time.perf_counter() - t0
 
 
 def function(name: str, symbol: str, argtypes: list):
