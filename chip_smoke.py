@@ -23,8 +23,11 @@ Phases:
      share of valid ids and with one expansion's ids all -1; `bin_dist`
      also at nw=4 and 7 and at B=1 and 33;
      `ivf_scan` also at 4x the ivf_pq preset's nprobe, and it and the bin
-     scan on a tie storm and at L = max_len), and the gathers' and fused
-     steps' fixed costs split by calls on ids that are all -1;
+     scan on a tie storm and at L = max_len; `beam_filter`, which replaces
+     no TPU kernel, at the graph cell's Q=10,000, W=4, M=24, L=320, at the
+     build's search pass, over a queue longer than one tile and in bitmap
+     mode, exactly), and the gathers' and fused steps' fixed costs split
+     by calls on ids that are all -1;
   3. the 50k anchor: deep_like at n=50,000 against the committed
      BENCH_traverse.json row (W=4, early termination on);
   4. the main path at Deep1M scale: KBest.add over 1,000,000 deep_like
@@ -246,7 +249,8 @@ REPORT: dict = {}
 SMALL: dict = {}        # small_graph's one build
 
 # Each kernel: its source (src/repro_torch/kernels/csrc/<source>.cu), the
-# TPU kernel it replaces, and the path whose launches the kernels line
+# TPU kernel it replaces (or "none" and where the JAX package computes the
+# same as plain jnp ops), and the path whose launches the kernels line
 # counts (phase 4's main path, phase 5's or phase 6's quantized paths,
 # phase 7's IVF paths)
 KERNEL_SOURCES = {
@@ -273,7 +277,9 @@ KERNEL_SOURCES = {
     "pq4_ivf_scan": ("ivf_scan", "src/repro/kernels/pq4_scan.py:119", "ivf"),
     "bin_ivf_scan": ("bin_ivf_scan", "src/repro/kernels/bin_hamming.py:149",
                      "ivf"),
-    "ivf_scan": ("ivf_scan", "src/repro/kernels/ivf_scan.py:62", "ivf")}
+    "ivf_scan": ("ivf_scan", "src/repro/kernels/ivf_scan.py:62", "ivf"),
+    "beam_filter": ("beam_filter", "none (src/repro/core/search.py, jnp)",
+                    "main")}
 
 
 T_START = time.perf_counter()
@@ -1064,6 +1070,72 @@ def kernel_cases(inp: dict) -> "list[Case]":
                                      3.0 * valid(ids) * k),
             lambda W=W, M=M, invalid=invalid, note=note: (
                 step_ids(W, M, invalid, note == blank),), exact=True)
+
+    # ---- beam_filter, the traversal's candidate filter (no TPU kernel),
+    # every output equal to the plain version's: at the graph cell's shape
+    # (Q = Q_MAIN, W=4, M=24, L=320, queue mode; the kernels line), at the
+    # build's search pass (W=1 over M=30 ids, L=48: a warp a row), over a
+    # queue longer than one shared-memory tile (L=1,500) and in bitmap mode
+    # over 100,000 rows with a quarter of the bits set beforehand. A banded
+    # graph (neighbours within 64 rows), expanded nodes within 8 rows of one
+    # another and queue ids within 256 rows, so ids repeat within and across
+    # expansions and many are queued; 5% of the lanes do not expand, 5% of
+    # the adjacency and 20% of the queue slots are -1. Its own generator, so
+    # the cases above keep their inputs. Bytes: the expanded ids, their
+    # rows' sectors, the queue, the outputs and in bitmap mode a word read
+    # and written a gathered id; operations: the id compares ----
+    gf = torch.Generator(device=dev).manual_seed(7)
+
+    def banded(nn, M):
+        g_ = (torch.arange(nn, device=dev)[:, None] + torch.randint(
+            -64, 65, (nn, M), generator=gf, device=dev)) % nn
+        g_[torch.rand((nn, M), generator=gf, device=dev) < 0.05] = -1
+        return g_.to(torch.int32)
+
+    def expansion(Qf, W, L, nn):
+        base = torch.randint(0, nn, (Qf, 1), generator=gf, device=dev)
+        v = (base + torch.randint(-8, 9, (Qf, W), generator=gf,
+                                  device=dev)) % nn
+        v[torch.rand((Qf, W), generator=gf, device=dev) < 0.05] = -1
+        qids = (base + torch.randint(-256, 257, (Qf, L), generator=gf,
+                                     device=dev)) % nn
+        qids[torch.rand((Qf, L), generator=gf, device=dev) < 0.2] = -1
+        return v.to(torch.int32), qids.to(torch.int32)
+
+    def filtered(fn, gr, bm0):
+        """fn's outputs as one tensor: flat, n_new and the bitmap after
+        the call (a copy of bm0, as int32 pairs)."""
+        def run(v, qids):
+            bm = None if bm0 is None else bm0.clone()
+            flat, n_new = fn(v, gr, qids, bm)
+            return torch.cat([flat, n_new[:, None]]
+                             + ([] if bm is None else [bm.view(torch.int32)]),
+                             dim=1)
+        return run
+
+    for Qf, W, M, L, nn, mode in ((Q_MAIN, 4, 24, 320, n, "queue"),
+                                  (Q_MAIN, 1, 30, 48, n, "queue"),
+                                  (Q, 4, 24, 1500, n, "queue"),
+                                  (Q, 4, 24, 320, 100_000, "bitmap")):
+        gr, C = banded(nn, M), W * M
+        bm0 = None
+        if mode == "bitmap":
+            bm0 = torch.randint(0, 2 ** 32, (Qf, (nn + 31) // 32),
+                                generator=gf, device=dev, dtype=torch.int64)
+            bm0 &= torch.randint(0, 2 ** 32, bm0.shape, generator=gf,
+                                 device=dev, dtype=torch.int64)
+        add("beam_filter", f"Q={Qf} W={W} M={M} L={L} n={nn} {mode}",
+            (W, L, mode) == (4, 320, "queue"), False,
+            filtered(ops.beam_filter, gr, bm0),
+            filtered(ref.beam_filter_ref, gr, bm0),
+            lambda v, qids, gr=gr, C=C, L=L, bm=bm0 is not None: (
+                row_bytes(v, gr.shape[1] * 4) + v.numel() * 4
+                + qids.numel() * 4 + v.shape[0] * (C + 1) * 4
+                + (16 * int((gr[v.clamp(min=0).long()] >= 0)[v >= 0].sum())
+                   if bm else 0),
+                float(v.shape[0] * (C * (C - 1) / 2 + C * L))),
+            lambda Qf=Qf, W=W, L=L, nn=nn: expansion(Qf, W, L, nn),
+            exact=True)
     return cases
 
 

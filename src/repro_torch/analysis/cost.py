@@ -20,8 +20,9 @@ card — so with the same numbers the admission decisions, degrade ladders
 and the tuner's pruning equal the reference's.
 
 The check half (`run`, `cost_model`, `report`): every kernel that
-parity.find_kernels discovers has a KERNEL_COSTS entry whose expressions
-resolve under `bindings` to positive numbers, and no entry is stale. The
+parity.find_kernels discovers has a KERNEL_COSTS (or, for the port's own
+kernels, PORT_KERNEL_COSTS) entry whose expressions resolve under
+`bindings` to positive numbers, and no entry is stale. The
 reference's AST grid extraction (the pallas_call `grid=` and its BlockSpec
 DMA bound) has no counterpart: the port's launch geometry lives in the
 C++ launchers, and a block's shared memory is smem_budget's.
@@ -228,11 +229,25 @@ KERNEL_COSTS: Dict[str, KernelCost] = {
         cands="Q*P*max_len"),
 }
 
+# The port's own kernels: no Pallas kernel of the reference computes them
+# (it runs the same stage as plain jnp ops), so they have no entry in the
+# reference's table, which KERNEL_COSTS mirrors, and no term in the
+# composition below; the check covers them all the same.
+PORT_KERNEL_COSTS: Dict[str, KernelCost] = {
+    # the traversal's candidate filter, once an iteration
+    "beam_filter": KernelCost(
+        flops="Q*(C*(C - 1)/2.0 + C*L)",
+        hbm_bytes="4.0*Q*(W + C + L + C + 1)",
+        cands="0",
+        note="id compares: earlier positions, then the queue"),
+}
+_ALL_COSTS = {**KERNEL_COSTS, **PORT_KERNEL_COSTS}
+
 
 def kernel_cost(name: str, w: Workload, **over) -> Tuple[float, float, float]:
     """(flops, hbm_bytes, cands) for one call of `name` under `w`, with
     `over` pinning call-site symbols (e.g. C=rerank_depth)."""
-    kc = KERNEL_COSTS[name]
+    kc = _ALL_COSTS[name]
     ns = bindings(w, **over)
     return (_eval_expr(kc.flops, ns), _eval_expr(kc.hbm_bytes, ns),
             _eval_expr(kc.cands, ns))
@@ -446,7 +461,7 @@ def estimate(tree: Tree, w: Workload = DEFAULT_WORKLOAD
     for rel, name, lineno in find_kernels(tree):
         notes: List[str] = []
         flops = hbm = cands = 0.0
-        if name in KERNEL_COSTS:
+        if name in _ALL_COSTS:
             try:
                 flops, hbm, cands = kernel_cost(name, w)
             except Exception as e:
@@ -476,8 +491,8 @@ def run(tree: Tree) -> List[Violation]:
                 f"(flops={est.flops}, bytes={est.hbm_bytes})"))
     # stale registry entries — only meaningful when the tree carries the
     # real kernel surface (fixture trees hold a single alien kernel)
-    if found & set(KERNEL_COSTS):
-        for name in sorted(set(KERNEL_COSTS) - found):
+    if found & set(_ALL_COSTS):
+        for name in sorted(set(_ALL_COSTS) - found):
             violations.append(Violation(
                 CHECK, COST_FILE, 1,
                 f"KERNEL_COSTS entry '{name}' matches no discovered "

@@ -76,6 +76,11 @@ DYNAMIC: Dict[Tuple[str, str], str] = {
     # PQ4's m x 16 table a warp, only where it fits the default 48 KiB
     ("traverse_step", "warp_step_kernel"):
         "min(kStepWarps * m * 16 * 4, kDefaultSmem)",
+    # a tile of queue ids and the row's C ids, for each of kRowWarps rows
+    # where a warp takes a row (C <= 32), else for the block's one row
+    ("beam_filter", "filter_kernel"):
+        "(kRowWarps if C <= 32 else 1) * (min(align4(L), kTileL) "
+        "+ align4(C)) * 4",
 }
 MIN_BLOCKS: Dict[Tuple[str, str], str] = {
     ("gather_dist", "gather_kernel"): "max(kF32MinBlocks, kSqMinBlocks)",

@@ -6,7 +6,9 @@ iteration expands the top-W unvisited candidates of every active query and
 scores all W*M gathered neighbors in one (Q, W*M) distance step. Where the
 reference runs a `jax.lax.while_loop`, this runs a host `while` over
 eagerly launched tensor ops, with one device sync per iteration to read
-the loop condition `any(active) & it < hops_bound`. Each stage runs in a
+the loop condition `any(active) & it < hops_bound`; an iteration's
+candidate filter (the neighbor gather, dedupe, visited and in-queue
+masks) is one call of `kernels.ops.beam_filter`. Each stage runs in a
 span of `repro_torch.spans` (a no-op unless the recorder is on), and each
 exit check counts one `sync`.
 
@@ -93,12 +95,13 @@ def search(graph: torch.Tensor, queries: torch.Tensor,
     `cfg.batch_B == 0`, replaces dist_fn + block sort with the fused
     gather+distance+sort step for the per-iteration block.
     """
+    from repro_torch.kernels import ops as kops
+
     dev = queries.device
     Q = queries.shape[0]
-    L, k, M = cfg.L, cfg.k, graph.shape[1]
+    L, k = cfg.L, cfg.k
     W = cfg.beam_width
     t_pos = int(cfg.et_t_frac * L)
-    nwords = (n_total + 31) // 32 if cfg.visited_mode == "bitmap" else 1
     use_fused = expand_fn is not None and cfg.batch_B == 0
     inf = float("inf")
 
@@ -109,9 +112,11 @@ def search(graph: torch.Tensor, queries: torch.Tensor,
         e_dists = dist_fn(queries, e_ids)
         queue, _, _ = qmod.merge_insert(qmod.init_queue(Q, L, dev), e_dists,
                                         e_ids)
-        bitmap = torch.zeros((Q, nwords), dtype=torch.int64, device=dev)
+        bitmap = None                  # queue mode keeps no visited set
         if cfg.visited_mode == "bitmap":
-            bitmap = _bitmap_set(bitmap, e_ids)
+            bitmap = _bitmap_set(torch.zeros((Q, (n_total + 31) // 32),
+                                             dtype=torch.int64, device=dev),
+                                 e_ids)
 
         # seed distances count toward n_dist, on valid lanes only
         active = (torch.ones((Q,), dtype=torch.bool, device=dev)
@@ -143,26 +148,13 @@ def search(graph: torch.Tensor, queries: torch.Tensor,
             queue = qmod.mark_visited_many(queue, idxs, exp_w)
 
             with spans.span("search.iter.filter"):
-                # all W neighbor lists at once, deduped in flat beam order
-                nbrs = torch.where(v[..., None] >= 0,
-                                   graph[torch.clamp(v, min=0).long()],
-                                   torch.full((1, 1, 1), -1,
-                                              dtype=graph.dtype, device=dev))
-                flat = qmod.dedupe_ids(nbrs.reshape(Q, W * M))
-
-                if cfg.visited_mode == "bitmap":
-                    seen = _bitmap_test(bitmap, flat)
-                    flat = torch.where(seen, torch.full_like(flat, -1), flat)
-                    bitmap = _bitmap_set_raw(bitmap, flat)
-
-                n_new = torch.sum(flat >= 0, dim=1).to(torch.int32)
-
-                # candidates already in the queue are masked BEFORE the
-                # distance step (the merge would discard them; the fused
-                # step requires it)
-                flat = torch.where(qmod.in_queue_mask(queue, flat),
-                                   torch.full_like(flat, -1),
-                                   flat).contiguous()
+                # all W neighbor lists at once, deduped in flat beam order,
+                # bitmap-visited ones masked (their bits set in place),
+                # counted, and those already in the queue masked BEFORE
+                # the distance step (the merge would discard them; the
+                # fused step requires it)
+                flat, n_new = kops.beam_filter(v, graph,
+                                               queue.ids.contiguous(), bitmap)
 
             with spans.span("search.iter.expand"):
                 if use_fused:

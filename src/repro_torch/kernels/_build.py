@@ -27,7 +27,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gather_dist", "traverse_step", "batch_dist", "pq_adc", "pq4_scan",
-           "bin_hamming", "ivf_scan", "bin_ivf_scan")
+           "bin_hamming", "ivf_scan", "bin_ivf_scan", "beam_filter")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -12,11 +12,12 @@ are normalized at add() time), as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import batch_dist as _bd
+from repro_torch.kernels import beam_filter as _bf
 from repro_torch.kernels import bin_hamming as _bh
 from repro_torch.kernels import gather_dist as _gd
 from repro_torch.kernels import ivf_scan as _iv
@@ -26,7 +27,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import traverse_step as _ts
 
 # each wrapper module's `launches` maps its kernels' names to their counts
-_WRAPPERS = (_gd, _ts, _bd, _pq, _p4, _bh, _iv)
+_WRAPPERS = (_gd, _ts, _bd, _pq, _p4, _bh, _iv, _bf)
 
 
 def _kernel_metric(metric: str) -> str:
@@ -160,6 +161,20 @@ def bin_ivf_scan(qcodes: torch.Tensor, list_codes: torch.Tensor,
     if qcodes.is_cuda:
         return _bh.bin_ivf_scan(qcodes, list_codes, list_ids, probe_ids, L)
     return ref.bin_ivf_scan_ref(qcodes, list_codes, list_ids, probe_ids, L)
+
+
+def beam_filter(v: torch.Tensor, graph: torch.Tensor,
+                queue_ids: torch.Tensor, bitmap: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The traversal's candidate filter: (Q, W) int32 expanded ids (-1
+    where a lane does not expand), (n, M) int32 graph, (Q, L) int32 queue
+    ids, optional (Q, nwords) int64 visited bitmap, updated in place ->
+    (flat (Q, W*M) int32 neighbor ids in beam order, -1 where invalid,
+    repeating an earlier position, visited or queued; n_new (Q,) int32,
+    the candidates counted before the queue test)."""
+    if v.is_cuda:
+        return _bf.beam_filter(v, graph, queue_ids, bitmap)
+    return ref.beam_filter_ref(v, graph, queue_ids, bitmap)
 
 
 def launch_counts() -> Dict[str, int]:

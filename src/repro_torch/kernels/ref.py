@@ -5,7 +5,9 @@ the JAX package's `repro/kernels/ref.py` (`batch_dist_ref`,
 `gather_dist_ref`, `sq_gather_dist_ref`, `pq_adc_ref`, `pq4_adc_ref`,
 `bin_dist_ref`, `sorted_block_ref`, the
 `fused_expand{,_sq,_pq,_pq4,_bin}_ref` family and the list scans
-`{,pq4_,bin_}ivf_scan_ref`). The CPU path of
+`{,pq4_,bin_}ivf_scan_ref`), and `beam_filter_ref`, the traversal's
+candidate filter, which the JAX package runs as plain jnp ops in its
+`core/search.py` and which has a kernel only here. The CPU path of
 `kernels/ops.py` runs these; on the card they serve only as the yardstick
 the kernels are held against.
 
@@ -15,9 +17,13 @@ popcount do not care about the sign bit.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
+from repro_torch.core import queue as qmod
 from repro_torch.core.build import sortable_keys
+from repro_torch.core.search import _bitmap_set_raw, _bitmap_test
 
 
 def batch_dist_ref(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
@@ -284,3 +290,27 @@ def bin_ivf_scan_ref(qcodes: torch.Tensor, list_codes: torch.Tensor,
         d = _popcount32(x).sum(-1).float()
         return _list_top(d, list_ids[pid], L)
     return _by_query_chunks(score, probe_ids, N * nw, L)
+
+
+def beam_filter_ref(v: torch.Tensor, graph: torch.Tensor,
+                    queue_ids: torch.Tensor,
+                    bitmap: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The traversal's candidate filter: (Q, W) expanded ids (-1 where a
+    lane does not expand), (n, M) graph, (Q, L) queue ids, optional
+    (Q, nwords) int64 visited bitmap (updated in place) -> flat (Q, W*M)
+    neighbor ids in beam order, -1 where invalid, repeating an earlier
+    position, visited or already queued; n_new (Q,) int32, the candidates
+    counted before the queue test."""
+    Q, W = v.shape
+    nbrs = torch.where(v[..., None] >= 0, graph[torch.clamp(v, min=0).long()],
+                       torch.full((1, 1, 1), -1, dtype=graph.dtype,
+                                  device=v.device))
+    flat = qmod.dedupe_ids(nbrs.reshape(Q, W * graph.shape[1]))
+    if bitmap is not None:
+        seen = _bitmap_test(bitmap, flat)
+        flat = torch.where(seen, torch.full_like(flat, -1), flat)
+        bitmap.copy_(_bitmap_set_raw(bitmap, flat))
+    n_new = torch.sum(flat >= 0, dim=1).to(torch.int32)
+    queued = qmod.in_queue_mask(qmod.Queue(None, queue_ids, None), flat)
+    return torch.where(queued, torch.full_like(flat, -1), flat), n_new

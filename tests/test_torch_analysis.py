@@ -160,22 +160,32 @@ def _phase2_kernels():
 
 
 def test_parity_finds_the_14_kernels():
+    """The 14 counterparts of the JAX package's Pallas kernels, and
+    beam_filter, the one kernel of the port that replaces none."""
     names = {name for _, name, _ in parity.find_kernels(Tree(ROOT))}
-    assert len(names) == 14
+    assert len(names) == 15
     assert names == _phase2_kernels()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    ported = {name for name, (_, rep, _) in chip_smoke.KERNEL_SOURCES.items()
+              if rep.startswith("src/repro/kernels/")}
+    assert len(ported) == 14
+    assert names - ported == {"beam_filter"}
 
 
 def test_cost_has_an_entry_for_every_kernel():
     est = cost.estimate(Tree(ROOT))
-    assert {e.name for e in est} == set(cost.KERNEL_COSTS) \
+    assert {e.name for e in est} == \
+        set(cost.KERNEL_COSTS) | set(cost.PORT_KERNEL_COSTS) \
         == _phase2_kernels()
+    assert set(cost.PORT_KERNEL_COSTS) == {"beam_filter"}
     for e in est:
         assert not e.notes and e.flops > 0 and e.hbm_bytes > 0, e
 
 
 def test_every_launcher_symbol_is_an_extern_c_definition():
     pairs = parity._Kernels(Tree(ROOT)).launcher_symbols()
-    assert len(pairs) == 14          # one C launcher a kernel
+    assert len(pairs) == 15          # one C launcher a kernel
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for _, _, src, sym in pairs:
         assert sym in parity.extern_c_symbols(
@@ -236,13 +246,21 @@ def test_sync_taint_rules(body, flagged):
 
 def test_smem_static_bytes():
     est = {k.name: k for k in smem.estimate(Tree(ROOT))}
-    assert len(est) == 9
+    assert len(est) == 10
     # ids and ranks of kStepWarps warps, kWarpSortC each: 2 x 4 x 128 x 4
     assert est["warp_step_kernel"].static_bytes == 4096
     assert all(k.static_bytes == 0 for n, k in est.items()
                if n != "warp_step_kernel")
     assert est["scan_kernel"].min_blocks == 5
     assert est["batch_dist_kernel"].dynamic is not None
+    # a queue tile and the row's ids: a block's one row at WORST (C =
+    # 4,096), four warps' rows at C <= 32
+    k = est["filter_kernel"]
+    assert k.uses_dynamic and not k.notes
+    assert k.worst_bytes == (1024 + 4096) * 4
+    assert smem._eval(k.dynamic, {**smem.constants(
+        (ROOT / "src/repro_torch/kernels/csrc/beam_filter.cu").read_text()),
+        **smem.HELPERS, "C": 30, "L": 48}) == 4 * (48 + 32) * 4
 
 
 # ------------------------------------------- chip_smoke's ptxas cross-check

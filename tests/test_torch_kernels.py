@@ -171,7 +171,7 @@ def test_sorted_block_epilogue_matches_reference(Q, W, M, L, signed_zeros):
 KERNELS = ("gather_dist", "fused_expand", "batch_dist", "sq_gather_dist",
            "fused_expand_sq", "pq_adc", "fused_expand_pq", "pq4_adc",
            "fused_expand_pq4", "bin_dist", "fused_expand_bin", "ivf_scan",
-           "pq4_ivf_scan", "bin_ivf_scan")
+           "pq4_ivf_scan", "bin_ivf_scan", "beam_filter")
 
 
 def _lists(r, Q, P, nlist, max_len, n):
@@ -220,6 +220,10 @@ def test_cpu_wrappers_launch_nothing():
     tops.pq4_ivf_scan(lut4[:, None], packed[:40].reshape(5, 8, 8), lids,
                       probes, L=4)
     tops.bin_ivf_scan(qw, words[:40].reshape(5, 8, 3), lids, probes, L=4)
+    graph = (torch.arange(80, dtype=torch.int32) % 40).reshape(40, 2)
+    tops.beam_filter(ids[:, :2].contiguous(), graph, ids)
+    tops.beam_filter(ids[:, :2].contiguous(), graph, ids,
+                     torch.zeros((3, 2), dtype=torch.int64))
     assert tops.launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
@@ -294,6 +298,11 @@ def test_cuda_kernels_match_plain(cuda, metric):
              tref.bin_ivf_scan_ref(qw, words.reshape(100, 50, 3), lids,
                                    probes, 20))):
         assert torch.equal(out[0], exp[0]) and torch.equal(out[1], exp[1])
+    graph = ids[:, :24].contiguous() % 64
+    v = torch.where(ids[:, :4] >= 0, ids[:, :4] % 64, -1)
+    for out, exp in zip(tops.beam_filter(v, graph, ids),
+                        tref.beam_filter_ref(v, graph, ids)):
+        assert torch.equal(out, exp)
     after = tops.launch_counts()
     assert set(after) == set(KERNELS)
     assert all(after[k] == before[k] + 1 for k in after)

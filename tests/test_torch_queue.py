@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from repro.core import queue as rq
+from repro.core import search as rsearch
 from repro_torch.core import queue as tq
+from repro_torch.kernels import ops as tops
+from test_torch_filter_cuda import filter_case
 from torch_reference_cache import jax_maps_below_limit  # noqa: F401
 
 # parallel test workers share the cores: one torch thread each keeps the
@@ -174,6 +177,77 @@ def test_merge_insert_property_cases_seeded():
     for _ in range(10):
         _check_property_merge(12, 9, int(r.integers(0, 2 ** 30)))
         _check_idempotent(16, int(r.integers(0, 2 ** 30)))
+
+
+def _filter_reference(v, graph, qids, bm):
+    """The JAX package's filter stage of its search loop, on numpy."""
+    Q, W = v.shape
+    g = jnp.asarray(graph)
+    nbrs = jnp.where(jnp.asarray(v)[..., None] >= 0,
+                     g[jnp.maximum(jnp.asarray(v), 0)], -1)
+    flat = jax.vmap(rq.dedupe_ids)(nbrs.reshape(Q, W * graph.shape[1]))
+    if bm is not None:
+        words = jnp.asarray(bm.astype(np.uint32))
+        seen = jax.vmap(rsearch._bitmap_test)(words, flat)
+        flat = jnp.where(seen, -1, flat)
+        bm = np.asarray(jax.vmap(rsearch._bitmap_set_raw)(words, flat))
+    n_new = jnp.sum(flat >= 0, axis=1).astype(jnp.int32)
+    queue = rq.Queue(jnp.zeros(qids.shape, jnp.float32), jnp.asarray(qids),
+                     jnp.zeros(qids.shape, bool))
+    flat = jnp.where(jax.vmap(rq.in_queue_mask)(queue, flat), -1, flat)
+    return np.asarray(flat), np.asarray(n_new), bm
+
+
+def _filter_loops(v, graph, qids, bm):
+    """The same filter written as loops over each row, with sets."""
+    Q, W = v.shape
+    M = graph.shape[1]
+    flat = np.full((Q, W * M), -1, np.int32)
+    n_new = np.zeros(Q, np.int32)
+    bm = None if bm is None else bm.copy()
+    for q in range(Q):
+        seen, queued = set(), set(qids[q].tolist())
+        for c in range(W * M):
+            node = v[q, c // M]
+            x = int(graph[node, c % M]) if node >= 0 else -1
+            if x < 0 or x in seen:
+                continue
+            seen.add(x)
+            if bm is not None:
+                if (int(bm[q, x >> 5]) >> (x & 31)) & 1:
+                    continue
+                bm[q, x >> 5] |= 1 << (x & 31)
+            n_new[q] += 1
+            if x not in queued:
+                flat[q, c] = x
+    return flat, n_new, bm
+
+
+@pytest.mark.parametrize("mode", ["queue", "bitmap"])
+@pytest.mark.parametrize("L", [48, 320])
+@pytest.mark.parametrize("M", [24, 32])
+@pytest.mark.parametrize("W", [1, 4])
+def test_beam_filter_plain_matches_reference(W, M, L, mode):
+    """ops.beam_filter on the CPU (its plain version) against the JAX
+    package's filter and a loop over each row: flat ids, n_new and the
+    bitmap, updated in place. Rows hold repeats within one adjacency row
+    and across expansions, lanes that do not expand, queued ids and, in
+    bitmap mode, bits set beforehand."""
+    v, graph, qids, bm = filter_case(W * 1000 + M * 10 + L, 8, W, M, L, 500,
+                                     mode == "bitmap")
+    bm_t = None if bm is None else torch.tensor(bm)       # a copy
+    flat, n_new = tops.beam_filter(*_t(v, graph, qids), bm_t)
+    assert tops.launch_counts()["beam_filter"] == 0
+    for exp in (_filter_reference(v, graph, qids, bm),
+                _filter_loops(v, graph, qids, bm)):
+        assert np.array_equal(flat.numpy(), exp[0])
+        assert np.array_equal(n_new.numpy(), exp[1])
+        if bm is not None:
+            assert np.array_equal(bm_t.numpy(), exp[2])
+    gathered = int((graph[np.maximum(v, 0)][v >= 0] >= 0).sum())
+    assert gathered > int(n_new.sum()) > int((flat >= 0).sum()) > 0
+    if bm is not None:
+        assert not np.array_equal(bm_t.numpy(), bm)
 
 
 # hypothesis drivers, where hypothesis is installed (the seeded sweeps
